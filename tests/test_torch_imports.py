@@ -1,0 +1,109 @@
+"""The port stands alone, and its copies equal the JAX package's modules.
+
+* ``repro_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor any
+  module of ``repro``: checked in a fresh interpreter.
+* The thirteen copied modules are the reference's byte for byte except
+  ``repro.`` → ``repro_torch.`` in their import lines, and the copies
+  give the reference's traces and contract table.
+* ``compat.resolve_device`` never falls back to the CPU by itself.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.sim import contracts as ref_contracts
+from repro.sim import traces as ref_traces
+from repro_torch import compat
+from repro_torch.sim import contracts, traces
+
+ROOT = Path(__file__).resolve().parents[1]
+COPIES = ["core/jobs.py", "core/profiles.py", "core/cluster.py",
+          "core/pbj_manager.py", "core/ws_manager.py", "core/system.py",
+          "core/provision.py", "core/baselines.py", "sim/pump.py",
+          "sim/engine.py", "sim/traces.py", "sim/contracts.py",
+          "sim/__init__.py", "core/__init__.py"]
+
+_HYGIENE = """
+import sys
+{body}
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("clean")
+"""
+
+
+def _run_clean(body):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _HYGIENE.format(body=body)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_port_imports_no_jax_and_no_reference():
+    _run_clean("import repro_torch.sim.capacity, "
+               "repro_torch.kernels.round_step, repro_torch.sim.sweep, "
+               "repro_torch.sim.rounds, repro_torch.compat")
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    _run_clean("import runpy; runpy.run_path('chip_smoke.py', "
+               "run_name='chip_smoke')")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_is_the_reference_with_imports_switched(rel):
+    ref = (ROOT / "src" / "repro" / rel).read_text()
+    port = (ROOT / "src" / "repro_torch" / rel).read_text()
+    switched = re.sub(r"^(\s*)from repro(\.| import)", r"\1from repro_torch\2",
+                      ref, flags=re.M)
+    assert port == switched
+
+
+@pytest.mark.parametrize("name,args", [("nasa_ipsc", (0,)),
+                                       ("sdsc_blue", (0,)),
+                                       ("worldcup98", (0, 128))])
+def test_copied_traces_equal_reference(name, args):
+    ref = getattr(ref_traces, name)(*args)
+    got = getattr(traces, name)(*args)
+    assert len(ref) == len(got)
+    for a, b in zip(ref, got):
+        if isinstance(a, tuple):
+            assert a == b
+        else:
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_contract_table_equals_reference():
+    assert set(contracts.CONTRACTS) == set(ref_contracts.CONTRACTS)
+    for k, v in ref_contracts.CONTRACTS.items():
+        assert dataclasses.asdict(contracts.CONTRACTS[k]) == \
+            dataclasses.asdict(v), k
+
+
+def test_resolve_device_has_no_silent_cpu_fallback():
+    assert compat.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert compat.resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            compat.resolve_device()
+        with pytest.raises(RuntimeError, match="not available"):
+            compat.resolve_device("cuda")
+    with pytest.raises(NotImplementedError, match="lane splitter"):
+        compat.check_devices(2)
+    import numpy as np
+    assert compat.resolve_pack_dtype(None) == np.float32
+    assert compat.resolve_pack_dtype(torch.float64) == np.float64
+    with pytest.raises(ValueError, match="float32 or float64"):
+        compat.resolve_pack_dtype(np.int32)

@@ -5,7 +5,9 @@
 Phases, one JSON line each (any failure raises and exits nonzero):
 
   device           the card's name and power limit (nvidia-smi)
-  build            nvcc build of the round_step kernel for sm_90a
+  build            nvcc builds of the three kernels for sm_90a
+                   (round_step, flash_attention, flash_decode), started
+                   together
   kernel_vs_plain  the FB and FLB-NUB lanes of paper_grid(128), packed
                    exactly as the sweep packs them (one pack per trace:
                    NASA iPSC and SDSC BLUE, each with WorldCup): the CUDA
@@ -13,7 +15,8 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    same state after EVERY chunk, float32 over two weeks
                    and float64 over a two-day slice; exact except the
                    three time integrals. Each line carries the kernel's
-                   and the plain version's times at the middle chunk,
+                   (CUDA events, calls queued behind a spin) and the
+                   plain version's times at the middle chunk,
                    the bound and the kernel's serial-chain time
   sweep            run_sweep_workloads over paper_grid(128) on both
                    traces (two weeks, mode="rounds") through the kernel;
@@ -23,7 +26,30 @@ Phases, one JSON line each (any failure raises and exits nonzero):
   headline         headline_queries() on the card: C = 135, FLB-NUB peak
                    660, EC2 peak 1075 (results/BENCH_capacity.json) and
                    the HEADLINE_CONTRACT gate
-  kernels          the kernel table line (launches on the sweep, times)
+  attn_kernel_vs_plain, decode_kernel_vs_plain
+                   gemma2-2b's attention at full width (8 / 4 heads of
+                   256, softcap 50): flash attention at S 8192 and 4600,
+                   flash decode at batch 8 over an 8192 cache at four
+                   positions; window 4096 and none, float32 and bfloat16,
+                   plus one case each whose scores reach the softcap;
+                   each against its plain version on the same inputs
+                   (elementwise atol + rtol, stated per dtype), with its
+                   device time (CUDA events around calls queued behind a
+                   spin), the plain version's, one SDPA call's (softcap
+                   off) and the bound
+  serve            gemma2-2b at full width, float32: AutoscaledService of
+                   Replicas sharing one Model, 8 requests of 500-6000
+                   prompt tokens; all complete, 26 flash-attention
+                   launches per admission, each admission's logits equal
+                   a plain prefill's; a profile of one prefill and one
+                   decode step
+  generate         gemma2-2b, bfloat16: batch-8 prefill of 4600 tokens,
+                   32 decode steps at one position through flash decode
+                   (26 launches a step), teacher-forced against the
+                   plain route (logits within 0.25, argmax agreement at
+                   least 0.9)
+  kernels          the kernel table line: each kernel's launches on its
+                   path (sweep, serve, generate), times, bound
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -37,6 +63,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +73,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fak  # noqa: E402
+from repro_torch.kernels import flash_decode as fdk  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import round_step as rsk  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
+from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.sim import rounds as roundslib  # noqa: E402
 from repro_torch.sim import traces  # noqa: E402
 from repro_torch.sim.capacity import headline_queries  # noqa: E402
@@ -85,6 +119,9 @@ ELEMENTWISE_OPS = {"add", "sub", "rsub", "mul", "div", "minimum", "maximum",
 REDUCTION_OPS = {"sum", "amin", "amax", "min", "max", "argmax", "cumsum"}
 # Barrier counts of the chain-cost probe; both timings are device-bound.
 PROBE_STEPS = (1024, 5120)
+# Clock cycles of the spin queued ahead of a timed run (about 25 ms on an
+# H100): the host enqueues the timed calls while the device spins.
+SPIN_CYCLES = 50_000_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -185,25 +222,27 @@ def time_calls(fn, n):
     return start.elapsed_time(stop) / n, 1e3 * host_s / n
 
 
-def kernel_device_ms(fn, n):
-    """Mean device time of the round_step kernel per call of ``fn`` from
-    a ``torch.profiler`` trace of ``n`` calls, or None when the trace
-    holds no device time for it."""
-    from torch.profiler import ProfilerActivity, profile
+def queued_ms(fn, n):
+    """Device ms per call of ``fn`` over ``n`` back-to-back calls: CUDA
+    events around calls that the host enqueued while a spin kernel held
+    the device, so the host's launch overhead does not count. Returns
+    ``(ms, device_bound)``: ``device_bound`` is False when the spin ended
+    before the host had enqueued every call, even at 16 times the spin;
+    the time is then an upper bound."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for spin in (SPIN_CYCLES, 4 * SPIN_CYCLES, 16 * SPIN_CYCLES):
+        torch.cuda._sleep(spin)
+        start.record()
         for _ in range(n):
             fn()
+        stop.record()
+        device_bound = not start.query()
         torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if "chunk_kernel" in ev.key and ev.count and dev_us:
-            return dev_us / 1e3 / ev.count
-    return None
+        if device_bound:
+            break
+    return start.elapsed_time(stop) / n, device_bound
 
 
 def sweep_lanes(workloads, horizon, dtype, device):
@@ -259,14 +298,12 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
         return rsk.chunk_step_ref(*inputs, mid_sc, mid_win, policy=policy,
                                   spec=spec)
 
-    kernel_event_ms, kernel_host_ms = time_calls(kernel, 50)
-    plain_ms, plain_host_ms = time_calls(plain, 5)
     # Back-to-back launches are host-bound (the wrapper enqueues no
-    # faster than the kernel runs), so the kernel's own time comes from
-    # the profiler; the event time is its upper bound.
-    kernel_ms, kernel_ms_from = kernel_device_ms(kernel, 50), "profiler"
-    if kernel_ms is None:
-        kernel_ms, kernel_ms_from = kernel_event_ms, "events"
+    # faster than the kernel runs), so the kernel's own time is taken
+    # with the calls queued behind a spin.
+    kernel_ms, device_bound = queued_ms(kernel, 50)
+    kernel_host_ms = time_calls(kernel, 50)[1]
+    plain_ms, plain_host_ms = time_calls(plain, 5)
     bound_ms, bound_by, nbytes, ops = launch_bound(
         policy, inputs, mid_sc, mid_win, spec, rounds_run[mid])
     barriers = rsk.chain_barriers(policy, spec)
@@ -276,8 +313,7 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
                 horizon_days=horizon / DAY, lanes=int(sc.shape[0]),
                 window=int(win.shape[-1]), job_table=int(inputs[0].shape[-1]),
                 chunks=len(states), lane_rounds=sum(rounds_run),
-                kernel_ms_per_launch=kernel_ms, kernel_ms_from=kernel_ms_from,
-                kernel_event_ms=kernel_event_ms,
+                kernel_ms_per_launch=kernel_ms, ms_device_bound=device_bound,
                 kernel_host_ms=kernel_host_ms, plain_ms_per_chunk=plain_ms,
                 plain_host_ms=plain_host_ms, max_abs_err=max_err,
                 mid_chunk=mid, mid_lane_rounds=rounds_run[mid],
@@ -298,6 +334,413 @@ def rows_equal(a, b, rtol, label):
                                      f"{rb[k]}")
 
 
+# ------------------------------------------------ the serving slice (LM)
+
+# gemma2-2b at full width: 26 layers (local window 4096 / global
+# alternating), d 2304, 8 q heads / 4 kv heads of 256, vocab 256000.
+LM_ARCH = "gemma2_2b"
+LM_SEED = 0
+# Kernel vs plain version on the same CUDA inputs, elementwise
+# |got - want| <= atol + rtol * |want|, as (atol, rtol). float32: the
+# kernels sum in another order than the plain einsums, over up to 8192
+# keys; against a float64 version the plain one is off by about 1e-6 on
+# unit-scale scores and 2.5e-5 on the softcap case (CPU check at S 4600).
+# bfloat16: both compute in float32 and round the output once, so they
+# can differ only where the two roundings fall on either side of a
+# boundary: one bfloat16 ulp, at most 2^-7 of the value (two ulps fail).
+KERNEL_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 1e-2)}
+# The softcap case: q scaled so the scores (else about N(0, 1)) reach
+# the cap of 50, about N(0, 40^2) before it. Without the cap the softmax
+# is nearly one-hot; with it the few keys that saturate near 50 share
+# it. The plain version without the cap must fail the tolerance there,
+# so a kernel that skipped the cap would too.
+CAP_Q_SCALE = 40.0
+# Peak rates for the bound (H100 SXM data sheet, 700 W): the kernels'
+# float32 arithmetic runs on the CUDA cores (67 TFLOP/s), bfloat16
+# against the dense tensor-core rate (989 TFLOP/s).
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+ATTN_SEQS = (8192, 4600)          # 4600: ragged (not a multiple of 64)
+ATTN_WINDOWS = (4096, None)       # gemma2's local and global layers
+DECODE_BATCH, DECODE_CACHE = 8, 8192
+DECODE_POSITIONS = (1000, 4616, 6000, 8191)   # 4616: the generate phase's
+DECODE_CAP_POS = 6000
+# Serving: float32 weights and compute (the Replica default).
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 8192, 16
+SERVE_PROMPTS = tuple(int(x) for x in np.linspace(500, 6000, 8))
+# An admission's prefill logits, kernel path vs plain path, float32:
+# logits are O(1) (unit-rms hidden state against a d^-1/2 embedding);
+# 26 layers of float32 arithmetic summed in two orders differ by about
+# 1e-5 (measured on one H100).
+SERVE_TOL = 1e-4
+# Generate: bfloat16 weights and compute, as the serving cells build them.
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 4600, 32
+# Per-step logits, kernel route vs plain route, bfloat16: the plain path
+# rounds scores and probabilities to bfloat16 in every layer (the kernel
+# keeps them in float32), so the routes drift apart by bf16 noise, about
+# 0.1 on logits of unit scale on one H100. The greedy token must agree
+# on at least GEN_MIN_AGREEMENT of the (row, step) pairs.
+GEN_TOL = 0.25
+GEN_MIN_AGREEMENT = 0.9
+
+
+def visible_pairs(s, window):
+    """(query, key) pairs causal attention with ``window`` evaluates."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(got, want, dtype):
+    """The kernel's output against the plain version's under
+    ``KERNEL_TOL``: max abs and relative (Frobenius) error, and whether
+    every element lies within atol + rtol * |want|."""
+    atol, rtol = KERNEL_TOL[dtype]
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return dict(max_abs_err=float(d.max()),
+                rel_err=float(d.norm() / w.norm()),
+                within_tol=bool((d <= atol + rtol * w.abs()).all()),
+                tol={"atol": atol, "rtol": rtol})
+
+
+def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0):
+    """flash_attention_bkv vs flash_attention_ref at b 1, causal; q
+    scaled by ``q_scale``."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v = ((torch.randn(n, s, hd, generator=gen, device=device) * f)
+               .to(dtype) for n, f in ((h, q_scale), (kv, 1.0), (kv, 1.0)))
+    cap = cfg.attn_softcap
+
+    def kernel():
+        return fak.flash_attention_bkv(q, k, v, window=window, softcap=cap)
+
+    def plain():
+        return kref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+
+    got, want = kernel(), plain()
+    check = compare(got, want, dtype)
+    if q_scale != 1.0:
+        check["no_cap_within_tol"] = compare(got, kref.flash_attention_ref(
+            q, k, v, window=window), dtype)["within_tol"]
+    # library: one SDPA call, softcap off (no PyTorch call computes the
+    # softcapped function), model layout (b, heads, s, hd).
+    ql, kl, vl = q[None], k[None], v[None]
+    mask = None if window is None else \
+        window_mask(s, window, device)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    ms, device_bound = queued_ms(kernel, 3)
+    pairs = visible_pairs(s, window)
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
+    flops = 4 * hd * pairs * h
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    out = dict(seq=s, window=window, dtype=str(dtype)[6:], heads=h,
+               kv_heads=kv, head_dim=hd, softcap=cap, q_scale=q_scale,
+               **check, ms=ms, ms_device_bound=device_bound,
+               plain_ms=queued_ms(plain, 2)[0],
+               library_ms=queued_ms(library, 3)[0],
+               library="scaled_dot_product_attention(enable_gqa=True), "
+                       "softcap off", bound_ms=bound_ms, bound_by=bound_by,
+               bound_bytes=nbytes, bound_flops=flops, visible_pairs=pairs)
+    del q, k, v, got, want, mask
+    return out
+
+
+def window_mask(s, window, device):
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    return (cols <= rows) & (cols > rows - window)
+
+
+def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
+    """flash_decode_bkv vs flash_decode_ref at batch 8 over an 8192
+    cache; q scaled by ``q_scale``."""
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_
+    bkv = DECODE_BATCH * kv
+    q = (torch.randn(bkv, g, hd, generator=gen, device=device)
+         * q_scale).to(dtype)
+    k, v = (torch.randn(bkv, DECODE_CACHE, hd, generator=gen,
+                        device=device).to(dtype) for _ in range(2))
+    at = torch.tensor(pos, dtype=torch.int32, device=device)
+    cap = cfg.attn_softcap
+
+    def kernel():
+        return fdk.flash_decode_bkv(q, k, v, at, window=window, softcap=cap)
+
+    def plain():
+        return kref.flash_decode_ref(q, k, v, at, window=window, softcap=cap)
+
+    got, want = kernel(), plain()
+    check = compare(got, want, dtype)
+    if q_scale != 1.0:
+        check["no_cap_within_tol"] = compare(got, kref.flash_decode_ref(
+            q, k, v, at, window=window), dtype)["within_tol"]
+    cols = torch.arange(DECODE_CACHE, device=device)
+    valid = cols <= pos
+    if window is not None:
+        valid &= cols > pos - window
+    ql = q.reshape(DECODE_BATCH, kv * g, 1, hd)
+    kl = k.reshape(DECODE_BATCH, kv, DECODE_CACHE, hd)
+    vl = v.reshape(DECODE_BATCH, kv, DECODE_CACHE, hd)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=valid[None, :], enable_gqa=True)
+
+    ms, device_bound = queued_ms(kernel, 20)
+    n_vis = int(valid.sum())
+    nbytes = k.element_size() * 2 * bkv * n_vis * hd \
+        + 2 * q.element_size() * q.numel()
+    flops = 4 * hd * n_vis * bkv * g
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    out = dict(pos=pos, window=window, dtype=str(dtype)[6:],
+               batch=DECODE_BATCH, kv_heads=kv, group=g, head_dim=hd,
+               cache=DECODE_CACHE, softcap=cap, q_scale=q_scale, **check,
+               ms=ms, ms_device_bound=device_bound,
+               plain_ms=queued_ms(plain, 5)[0],
+               library_ms=queued_ms(library, 20)[0],
+               library="scaled_dot_product_attention(enable_gqa=True, "
+                       "attn_mask), softcap off", bound_ms=bound_ms,
+               bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops,
+               visible_keys=n_vis)
+    del q, k, v, got, want
+    return out
+
+
+def check_cases(phase, cases):
+    for c in cases:
+        emit(phase, **c)
+    bad = [c for c in cases if not c["within_tol"]]
+    if bad:
+        raise AssertionError(f"{phase}: kernel differs from its plain "
+                             f"version beyond tolerance: {bad}")
+    blind = [c for c in cases if c.get("no_cap_within_tol")]
+    if blind:
+        raise AssertionError(f"{phase}: the softcap case does not tell a "
+                             f"capped from an uncapped result: {blind}")
+
+
+def zero_counts():
+    rsk.chunk_step.launches = 0
+    fak.flash_attention_bkv.launches = 0
+    fdk.flash_decode_bkv.launches = 0
+
+
+def read_counts():
+    return {"round_step": rsk.chunk_step.launches,
+            "flash_attention": fak.flash_attention_bkv.launches,
+            "flash_decode": fdk.flash_decode_bkv.launches}
+
+
+def breakdown(fn):
+    """Where one call of ``fn`` spends its time: its host wall (host
+    clock around the call and a synchronize, after a warm-up call), the
+    device time of all its kernels from a ``torch.profiler`` trace of a
+    second call (None when the trace holds none), the busy share
+    device / wall, and the five kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue              # host ops: their kernels are listed too
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us:
+            per_kernel[ev.key[:80]] = us / 1e3
+    device_ms = sum(per_kernel.values()) or None
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if device_ms else None,
+                top_kernels_ms=top)
+
+
+def serve_phase(cfg, device):
+    """The serving path at full width: AutoscaledService of Replicas that
+    share one float32 gemma2-2b, eight requests, prompts 500–6000."""
+    model = Model(cfg, device, compute_dtype=torch.float32).init(LM_SEED)
+    prefills = []
+    prefill = model.prefill
+
+    def recording_prefill(batch, cache):
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch, cache)
+        torch.cuda.synchronize()
+        prefills.append((batch["tokens"], logits,
+                         time.perf_counter() - t0))
+        return logits, cache
+
+    model.prefill = recording_prefill
+    rng = np.random.default_rng(LM_SEED)
+    requests = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n)
+                        .astype(np.int32), max_new_tokens=SERVE_NEW)
+                for i, n in enumerate(SERVE_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    svc = AutoscaledService(cfg, device, slots_per_replica=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, params=model)
+    for r in requests:
+        svc.submit(r, now=0.0)
+    trace = []
+    for tick in range(4 * SERVE_NEW):
+        svc.tick(now=float(tick))
+        trace.append(len(svc.replicas))
+        if not svc.queue and all(r.n_active == 0 for r in svc.replicas):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del model.prefill
+    if len(svc.completed) != len(requests):
+        raise AssertionError(f"serve: {len(svc.completed)} of "
+                             f"{len(requests)} requests completed")
+    if len(prefills) != len(requests) or \
+            counts["flash_attention"] != cfg.n_layers * len(prefills):
+        raise AssertionError(f"serve: {counts} launches for "
+                             f"{len(prefills)} admissions")
+    tokens = sum(len(r.output) for r in svc.completed)
+    replicas = max(trace)
+    del svc
+    torch.cuda.empty_cache()
+    # Each admission's logits against a plain prefill of its prompt.
+    plain = model.with_impl("torch")
+    errs = []
+    for toks, logits, _ in prefills:
+        cache = plain.init_cache(1, toks.shape[1], dtype=torch.float32)
+        want, _ = plain.prefill({"tokens": toks}, cache)
+        errs.append(float((logits - want).abs().max()))
+        del cache, want
+    # Where a serving step's time goes: the longest admission's prefill
+    # through the kernels, and one decode step of a full replica (4 slots
+    # at their own positions, the masked path).
+    toks = prefills[-1][0]
+    prefill_profile = breakdown(lambda: model.prefill(
+        {"tokens": toks}, model.init_cache(1, toks.shape[1],
+                                           dtype=torch.float32)))
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN, dtype=torch.float32)
+    slot_pos = torch.as_tensor(SERVE_PROMPTS[-SERVE_SLOTS:], device=device)
+    slot_tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device=device)
+    step_profile = breakdown(lambda: model.decode(slot_tok, cache, slot_pos))
+    del cache
+    out = dict(arch=cfg.name, dtype="float32", requests=len(requests),
+               prompts=list(SERVE_PROMPTS), max_new_tokens=SERVE_NEW,
+               slots_per_replica=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+               completed=len(requests), tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, prefill_s=sum(p[2] for p in
+                                                         prefills),
+               prefill_s_each=[p[2] for p in prefills],
+               max_replicas=replicas, instance_trace=trace,
+               peak_memory_gb=peak / 1e9, launches=counts,
+               prefill_max_abs_err=errs, tol=SERVE_TOL,
+               prefill_profile=prefill_profile, step_profile=step_profile)
+    emit("serve", **out)
+    if not max(errs) <= SERVE_TOL:
+        raise AssertionError(f"serve: prefill logits differ from the plain "
+                             f"path: {errs}")
+    del model, plain, prefills
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_phase(cfg, device):
+    """The decode cell's path: bfloat16 gemma2-2b, batch 8, a 4600-token
+    prefill, then 32 decode steps at one scalar position (flash decode);
+    the plain route replays the same tokens (teacher-forced)."""
+    model = Model(cfg, device, compute_dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16).init(LM_SEED)
+    rng = np.random.default_rng(LM_SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                        (GEN_BATCH, GEN_PROMPT)),
+                           device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    cache = model.init_cache(GEN_BATCH, DECODE_CACHE, dtype=torch.bfloat16)
+    lg0, cache = model.prefill({"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pos = torch.tensor(GEN_PROMPT, device=device)
+    nxt = torch.argmax(lg0[:, -1], dim=-1)
+    fed, logits = [], []
+    t1 = time.perf_counter()
+    for _ in range(GEN_STEPS):
+        fed.append(nxt)
+        lg, cache = model.decode(nxt[:, None], cache, pos)
+        logits.append(lg[:, 0])
+        nxt = torch.argmax(lg[:, 0], dim=-1)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    counts = read_counts()
+    if counts["flash_decode"] != cfg.n_layers * GEN_STEPS or \
+            counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"generate: launches {counts}")
+    step_profile = breakdown(lambda: model.decode(nxt[:, None], cache, pos))
+    del cache
+    torch.cuda.empty_cache()
+    plain = model.with_impl("torch")
+    cache = plain.init_cache(GEN_BATCH, DECODE_CACHE, dtype=torch.bfloat16)
+    lp0, cache = plain.prefill({"tokens": toks}, cache)
+    pos = torch.tensor(GEN_PROMPT, device=device)
+    errs, means, agree = [], [], []
+    for tok, lg in zip(fed, logits):
+        lp, cache = plain.decode(tok[:, None], cache, pos)
+        d = (lg.float() - lp[:, 0].float()).abs()
+        errs.append(float(d.max()))
+        means.append(float(d.mean()))
+        agree.append(float((torch.argmax(lp[:, 0], -1) ==
+                            torch.argmax(lg, -1)).float().mean()))
+        pos = pos + 1
+    prefill_err = float((lg0.float() - lp0.float()).abs().max())
+    out = dict(arch=cfg.name, dtype="bfloat16", batch=GEN_BATCH,
+               prompt=GEN_PROMPT, steps=GEN_STEPS, cache=DECODE_CACHE,
+               prefill_s=prefill_s, decode_s=decode_s,
+               decode_ms_per_step=1e3 * decode_s / GEN_STEPS,
+               tokens_per_s=GEN_BATCH * GEN_STEPS / decode_s,
+               launches=counts, prefill_max_abs_err=prefill_err,
+               step_max_abs_err=max(errs), step_mean_abs_err=max(means),
+               argmax_agreement=sum(agree) / len(agree), tol=GEN_TOL,
+               min_argmax_agreement=GEN_MIN_AGREEMENT,
+               step_profile=step_profile)
+    emit("generate", **out)
+    if not max(errs + [prefill_err]) <= GEN_TOL:
+        raise AssertionError(f"generate: logits differ from the plain "
+                             f"route beyond {GEN_TOL}: {errs}")
+    if not out["argmax_agreement"] >= GEN_MIN_AGREEMENT:
+        raise AssertionError(f"generate: argmax agreement "
+                             f"{out['argmax_agreement']} below "
+                             f"{GEN_MIN_AGREEMENT}")
+    del model, plain, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mean_of(cases, key):
+    return sum(c[key] for c in cases) / len(cases)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -315,11 +758,15 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          count=torch.cuda.device_count())
 
-    # --- build
+    # --- build: one nvcc per source, all started together
     t0 = time.time()
-    lib = rsk.build(verbose=True)
-    emit("build", seconds=time.time() - t0, library=lib.name,
-         flags=" ".join(rsk.NVCC_FLAGS))
+    libraries = (rsk.LIBRARY, fak.LIBRARY, fdk.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: lib.build(verbose=True),
+                              libraries))
+    emit("build", seconds=time.time() - t0,
+         libraries=[b.name for b in built],
+         flags={lib.name: " ".join(lib.flags) for lib in libraries})
 
     # --- kernel vs plain, chunk by chunk, on the sweep's own packs
     wc = traces.worldcup98(seed=0, peak_vms=128)
@@ -339,15 +786,16 @@ def main() -> int:
 
     # --- the main path: the paper-grid sweep through the kernel
     grid = paper_grid(128)
-    rsk.chunk_step.launches = 0
+    zero_counts()
     t0 = time.time()
     rows = run_sweep_workloads(grid, workloads, big, mode="rounds",
                                device=device)
     torch.cuda.synchronize()
     sweep_s = time.time() - t0
-    launches = rsk.chunk_step.launches
-    if launches == 0:
-        raise AssertionError("the sweep launched no round_step kernel")
+    counts = read_counts()
+    launches = counts["round_step"]
+    if launches == 0 or counts["flash_attention"] or counts["flash_decode"]:
+        raise AssertionError(f"the sweep's launches: {counts}")
     # kernel_vs_plain stepped the same packs the same way.
     f32 = [r for r in runs if r["dtype"] == "float32"]
     if launches != sum(r["chunks"] for r in f32):
@@ -398,9 +846,29 @@ def main() -> int:
         raise AssertionError(f"HEADLINE_CONTRACT: {gate}")
     emit("headline", wall_s=headline_s, **hl)
 
+    # --- the serving slice at gemma2-2b's full width
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    dtypes = (torch.float32, torch.bfloat16)
+    attn = [attn_case(cfg, s, w, dt, device, gen) for s in ATTN_SEQS
+            for w in ATTN_WINDOWS for dt in dtypes]
+    attn += [attn_case(cfg, ATTN_SEQS[1], ATTN_WINDOWS[0], dt, device, gen,
+                       q_scale=CAP_Q_SCALE) for dt in dtypes]
+    check_cases("attn_kernel_vs_plain", attn)
+    dec = [decode_case(cfg, p, w, dt, device, gen) for p in DECODE_POSITIONS
+           for w in ATTN_WINDOWS for dt in dtypes]
+    dec += [decode_case(cfg, DECODE_CAP_POS, ATTN_WINDOWS[0], dt, device,
+                        gen, q_scale=CAP_Q_SCALE) for dt in dtypes]
+    check_cases("decode_kernel_vs_plain", dec)
+    torch.cuda.empty_cache()
+    serve = serve_phase(cfg, device)
+    generate = generate_phase(cfg, device)
+
     # --- the kernel table line
-    # Times and bounds at the main path's shapes: the float32 two-week
-    # packs of both traces and policies, weighted by their launches.
+    # round_step: times and bounds at the main path's shapes, the float32
+    # two-week packs of both traces and policies, weighted by launches.
     def per_launch(key):
         return sum(r[key] * r["chunks"] for r in f32) / launches
 
@@ -421,6 +889,32 @@ def main() -> int:
         >= launches else "operations",
         "library_ms": None,
     }]}
+    # flash_attention: the serve path's float32 prefill, at the ragged
+    # S = 4600, the mean of its local (window 4096) and global layers.
+    # flash_decode: the generate path's bfloat16 step at pos 4616, the
+    # mean of its local and global layers.
+    for name, cases, launches_on_path, match in (
+            ("flash_attention", attn, serve["launches"]["flash_attention"],
+             dict(seq=4600, dtype="float32", q_scale=1.0)),
+            ("flash_decode", dec, generate["launches"]["flash_decode"],
+             dict(pos=4616, dtype="bfloat16", q_scale=1.0))):
+        sel = [c for c in cases if all(c[k] == v for k, v in match.items())]
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": {"flash_attention":
+                         "src/repro/kernels/flash_attention.py:122",
+                         "flash_decode":
+                         "src/repro/kernels/flash_decode.py:98"}[name],
+            "launches": launches_on_path,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": mean_of(sel, "ms"),
+            "plain_ms": mean_of(sel, "plain_ms"),
+            "bound_ms": mean_of(sel, "bound_ms"),
+            "bound_by": sel[0]["bound_by"],
+            "library_ms": mean_of(sel, "library_ms"),
+        })
     emit("chain", chain_ms=per_launch("chain_ms"), bound_ms=bound_ms,
          note="serial chain of block barriers per launch x measured "
               "barrier cost, beside the bytes/operations bound")

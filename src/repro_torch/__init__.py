@@ -6,7 +6,14 @@ The counterpart of the JAX package ``repro``, module for module:
                          event engine's building blocks (numpy only)
   repro_torch.sim      — traces, the event engine, the event-rounds
                          engine, the sweep and the capacity queries
-  repro_torch.kernels  — hand-written CUDA kernels (``round_step``) with
+  repro_torch.configs  — the architecture configs (copied)
+  repro_torch.models   — dense decoder LMs (gemma2, smollm, qwen): prefill
+                         and decode over KV caches
+  repro_torch.serving  — the continuous-batching engine and the §6.4
+                         autoscaler
+  repro_torch.launch   — the serving CLI
+  repro_torch.kernels  — hand-written CUDA kernels (``round_step``,
+                         ``flash_attention``, ``flash_decode``) with
                          their plain PyTorch versions
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -4,11 +4,24 @@ version, for NVIDIA Hopper (``sm_90a``).
 * ``round_step.py`` — the fused outer step of the event-rounds engine
   (``repro_torch.sim.rounds``), replacing the JAX package's Pallas
   ``repro.kernels.round_step.chunk_step``. Source:
-  ``csrc/round_step.cu``, built with nvcc into ``build/`` at first use
-  and bound with ``ctypes``. The wrapper takes CUDA tensors and
-  launches the kernel or raises; ``RoundsSpec.kernel`` picks the plain
-  version (``chunk_step_ref``) on the CPU.
+  ``csrc/round_step.cu``. ``RoundsSpec.kernel`` picks the plain version
+  (``chunk_step_ref``) on the CPU.
+* ``flash_attention.py`` — blocked online-softmax attention forward
+  (GQA, causal, sliding window, softcap), replacing
+  ``repro.kernels.flash_attention.flash_attention_bkv``. Source:
+  ``csrc/flash_attention.cu``.
+* ``flash_decode.py`` — one-token attention over a KV cache at a device
+  scalar position (split-K over the cache, then a combine pass),
+  replacing ``repro.kernels.flash_decode.flash_decode_bkv``. Source:
+  ``csrc/flash_decode.cu``.
+* ``ref.py`` — the attention kernels' plain versions; ``ops.py`` — the
+  model-layout entry points the models call.
 
-The JAX package's other three Pallas kernels (flash attention, flash
-decode, SSD scan) serve the LM payload models and are not ported yet.
+Every source is built with nvcc into ``build/`` at first use and bound
+with ``ctypes`` (``cudalib.CudaLibrary``). A kernel wrapper takes CUDA
+tensors and launches its kernel or raises; it counts its launches in
+``<wrapper>.launches``.
+
+The JAX package's fourth Pallas kernel, the Mamba2 SSD scan, is not
+ported yet (``ops.ssd`` raises).
 """

@@ -1,0 +1,70 @@
+"""Model-layout entry points of the attention kernels.
+
+The counterparts of ``repro.kernels.ops``: ``flash_attention`` over
+(b, s, h, hd) tensors and ``flash_decode`` over the decode-native
+(b, kv, s, hd) cache, folded into the kernels' layouts exactly as the
+JAX package folds them (consecutive G = h / kv query heads share one kv
+head). On CUDA tensors they launch the CUDA kernels
+(``flash_attention.flash_attention_bkv``,
+``flash_decode.flash_decode_bkv``); on CPU tensors, and only there, they
+run the kernels' plain versions (``ref``), which is what the CPU tests
+reach through ``Model(impl="cuda")``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_bkv
+from repro_torch.kernels.flash_decode import flash_decode_bkv
+
+__all__ = ["flash_attention", "flash_decode", "ssd"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Model layout: q (b, s, h, hd); k/v (b, s, kv, hd) → (b, s, h, hd)."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    # (b, s, kv, g, hd) → (b*kv*g, s, hd); consecutive g rows share a kv head.
+    qk = q.reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4) \
+        .reshape(b * kv * g, s, hd).contiguous()
+    kk = k.permute(0, 2, 1, 3).reshape(b * kv, k.shape[1], hd).contiguous()
+    vk = v.permute(0, 2, 1, 3).reshape(b * kv, v.shape[1], hd).contiguous()
+    fn = flash_attention_bkv if q.device.type == "cuda" \
+        else ref.flash_attention_ref
+    out = fn(qk, kk, vk, causal=causal, window=window, softcap=softcap)
+    return out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4) \
+        .reshape(b, s, h, hd)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: Union[int, torch.Tensor], *,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """Serving layout: q (b, 1, h, hd); k/v cache (b, kv, s, hd); pos a
+    scalar (int or 0-d tensor). Returns (b, 1, h, hd)."""
+    b, _, h, hd = q.shape
+    kv = k_cache.shape[1]
+    g = h // kv
+    qf = q.reshape(b * kv, g, hd).contiguous()
+    kf = k_cache.reshape(b * kv, k_cache.shape[2], hd)
+    vf = v_cache.reshape(b * kv, v_cache.shape[2], hd)
+    fn = flash_decode_bkv if q.device.type == "cuda" \
+        else ref.flash_decode_ref
+    out = fn(qf, kf, vf, pos, window=window, softcap=softcap)
+    return out.reshape(b, 1, h, hd)
+
+
+def ssd(*args, **kwargs):
+    """The Mamba2 SSD chunked scan (``repro.kernels.ops.ssd``) is not
+    ported yet: it comes with the mamba2_130m slice (ROADMAP, "Next for
+    the port": kernel B4)."""
+    raise NotImplementedError(
+        "ops.ssd: the SSD scan kernel is not ported yet (ROADMAP B4, the "
+        "mamba2_130m slice)")

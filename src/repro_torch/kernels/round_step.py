@@ -32,16 +32,12 @@ stretch coalescer (``batch > 1``) runs on the plain version only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.cudalib import CudaLibrary
 from repro_torch.sim import rounds as _rounds
 from repro_torch.sim.rounds import ACC_KEYS, RoundsSpec
 
@@ -161,21 +157,23 @@ def chunk_step_ref(jobs, rises, wstab, prm, sc, win, *, policy: str,
 
 # ------------------------------------------------------------- the kernel
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "round_step.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-_LIB: Dict[str, ctypes.CDLL] = {}
-_LIB_LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    found = shutil.which("nvcc") or str(Path(home) / "bin" / "nvcc")
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found: the round_step kernel is built "
-                           "with the CUDA toolkit's nvcc (set CUDA_HOME)")
-    return found
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.round_step_chunk
+    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_double]
+                   + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    lib.round_step_error_string.argtypes = [ctypes.c_int]
+    lib.round_step_error_string.restype = ctypes.c_char_p
+    probe = lib.round_step_chain_probe
+    probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    probe.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("round_step", NVCC_FLAGS, _declare)
 
 
 def build(verbose: bool = False) -> Path:
@@ -184,39 +182,11 @@ def build(verbose: bool = False) -> Path:
     source and flags, so an edited source rebuilds) and return its
     path. With ``verbose`` the ptxas register/shared-memory report is
     printed."""
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"round_step_{tag[:16]}.so"
-    if out.exists() and not verbose:
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_CSRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
+    return LIBRARY.build(verbose)
 
 
 def _library() -> ctypes.CDLL:
-    with _LIB_LOCK:
-        if "lib" not in _LIB:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.round_step_chunk
-            fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_double]
-                           + [ctypes.c_void_p] * 9)
-            fn.restype = ctypes.c_int
-            lib.round_step_error_string.argtypes = [ctypes.c_int]
-            lib.round_step_error_string.restype = ctypes.c_char_p
-            probe = lib.round_step_chain_probe
-            probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-            probe.restype = ctypes.c_int
-            _LIB["lib"] = lib
-        return _LIB["lib"]
+    return LIBRARY.get()
 
 
 def _check_state(jobs, sc, win, spec) -> None:

@@ -1,12 +1,13 @@
-"""The CUDA round-step kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Runs only where ``torch.cuda.is_available()`` (the check is made inside
-the test): there ``repro_torch.kernels.round_step.chunk_step`` builds
-``csrc/round_step.cu`` with nvcc and launches it, and after every chunk
-its state must equal ``chunk_step_ref`` on the same CUDA tensors —
-exactly, except the three time integrals (rtol 1e-5 float32, 1e-6
-float64). ``python3 chip_smoke.py`` drives the same comparison at the
-paper's full size.
+each test): there the wrappers build their ``csrc/*.cu`` sources with
+nvcc and launch them. The round step's state after every chunk must
+equal ``chunk_step_ref`` on the same CUDA tensors, exactly except the
+three time integrals (rtol 1e-5 float32, 1e-6 float64); the flash
+attention and flash decode kernels must match ``kernels.ref`` (see the
+tolerances below), and a reduced model's kernel path its plain path.
+``python3 chip_smoke.py`` drives the same comparisons at full size.
 """
 
 import numpy as np
@@ -60,3 +61,149 @@ def test_kernel_equals_plain_after_every_chunk_on_the_card(policy, dtype):
         win = torch.where(live[:, None, None], want[1], win)
         chunks += 1
     assert rsk.chunk_step.launches - before == chunks > 20
+
+
+# ------------------------------------------- attention kernels on the card
+#
+# Both CUDA kernels against their plain versions on the same CUDA
+# tensors: the CPU tests' shapes plus gemma2-2b's full width (8 heads /
+# 4 kv, hd 256, window 4096, softcap 50). Tolerance (atol, rtol), the
+# same as chip_smoke.py's: float32 1e-4, 0 (the kernels sum in another
+# order than the plain einsums, over up to 8192 keys); bfloat16 1e-5,
+# 1e-2 (both compute in float32 and round the output once: they differ
+# by at most one bfloat16 ulp, 2^-7 of the value).
+
+ATTN_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 1e-2)}
+# q scaled so the scores reach the softcap (about N(0, 40^2) before a cap
+# of 50): there the plain version without the cap fails the tolerance.
+CAP_Q_SCALE = 40.0
+ATTN_CASES = [
+    # (bh, bkv, s, hd, window, softcap)
+    (16, 8, 256, 64, None, None), (4, 4, 128, 32, None, 50.0),
+    (12, 4, 384, 64, 128, None), (8, 1, 512, 128, 256, 30.0),
+    (9, 3, 256, 64, None, None), (4, 2, 320, 64, 64, 50.0),
+    (4, 2, 200, 256, 64, 50.0), (8, 4, 80, 16, 64, 50.0),
+    (8, 4, 4600, 256, 4096, 50.0),      # gemma2-2b, ragged S
+]
+DECODE_CASES = [
+    # (bkv, g, S, hd, pos, window, softcap)
+    (4, 2, 1024, 64, 100, None, 50.0), (4, 2, 1024, 64, 900, 256, 50.0),
+    (4, 2, 1100, 32, 1099, 512, 30.0), (4, 4, 1100, 256, 1050, None, None),
+    (4, 2, 88, 16, 80, 64, 50.0), (6, 3, 40, 64, 23, None, None),
+    (32, 2, 8192, 256, 6000, 4096, 50.0),   # gemma2-2b, batch 8
+]
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bkv,s,hd,window,cap", ATTN_CASES)
+def test_flash_attention_kernel_equals_plain_on_the_card(bh, bkv, s, hd,
+                                                         window, cap, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bkv
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(n, s, hd, generator=gen, device=dev).to(dtype)
+               for n in (bh, bkv, bkv))
+    before = flash_attention_bkv.launches
+    got = flash_attention_bkv(q, k, v, window=window, softcap=cap)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention_bkv.launches == before + 1
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    # A rectangular q at an offset: the bottom rows of the same problem.
+    tail = flash_attention_bkv(q[:, s // 2:].contiguous(), k, v,
+                               window=window, softcap=cap, q_offset=s // 2)
+    torch.testing.assert_close(tail.float(), want[:, s // 2:].float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("bkv,g,s,hd,pos,window,cap", DECODE_CASES)
+def test_flash_decode_kernel_equals_plain_on_the_card(bkv, g, s, hd, pos,
+                                                      window, cap, dtypes):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_bkv
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(bkv, g, hd, generator=gen, device=dev).to(dtypes[0])
+    k, v = (torch.randn(bkv, s, hd, generator=gen, device=dev).to(dtypes[1])
+            for _ in range(2))
+    at = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = flash_decode_bkv.launches
+    got = flash_decode_bkv(q, k, v, at, window=window, softcap=cap)
+    want = ref.flash_decode_ref(q, k, v, at, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_decode_bkv.launches == before + 1
+    atol, rtol = ATTN_TOL[dtypes[0]]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def _close(got, want, dtype):
+    atol, rtol = ATTN_TOL[dtype]
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_decode"])
+def test_softcap_that_bites_on_the_card(kernel, dtype):
+    """gemma2-2b's width with scores past the cap of 50: the kernel
+    matches the plain version with the cap and not the one without."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bkv
+    from repro_torch.kernels.flash_decode import flash_decode_bkv
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if kernel == "flash_attention":
+        q_shape, kv_shape, extra = (8, 1200, 256), (4, 1200, 256), ()
+        run, plain = flash_attention_bkv, ref.flash_attention_ref
+    else:
+        q_shape, kv_shape = (8, 2, 256), (8, 2048, 256)
+        extra = (torch.tensor(1500, dtype=torch.int32, device=dev),)
+        run, plain = flash_decode_bkv, ref.flash_decode_ref
+    q = (torch.randn(*q_shape, generator=gen, device=dev)
+         * CAP_Q_SCALE).to(dtype)
+    k, v = (torch.randn(*kv_shape, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    got = run(q, k, v, *extra, window=1024, softcap=50.0)
+    assert _close(got, plain(q, k, v, *extra, window=1024, softcap=50.0),
+                  dtype)
+    assert not _close(got, plain(q, k, v, *extra, window=1024), dtype)
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "smollm_135m"])
+def test_model_kernel_path_equals_plain_path_on_the_card(arch):
+    """Reduced model: prefill and a scalar-position decode through both
+    kernels (impl="cuda") against the plain path (impl="torch"), float32
+    (the models' own tolerance, atol 5e-5 / rtol 5e-4, widened to 1e-4
+    for the kernels' summation order)."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.transformer import Model
+    dev = _cuda_or_skip()
+    cfg = reduced_config(get_config(arch))
+    model = Model(cfg, dev, compute_dtype=torch.float32).init(0)
+    assert model.impl == "cuda"
+    toks = torch.randint(0, cfg.vocab, (2, 81), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    outs = []
+    for m in (model, model.with_impl("torch")):
+        cache = m.init_cache(2, 96, dtype=torch.float32)
+        lg0, cache = m.prefill({"tokens": toks[:, :80]}, cache)
+        lg1, _ = m.decode(toks[:, 80:], cache,
+                          torch.tensor(80, device=dev))
+        outs.append((lg0, lg1))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=5e-4)

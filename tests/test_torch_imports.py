@@ -2,9 +2,11 @@
 
 * ``repro_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor any
   module of ``repro``: checked in a fresh interpreter.
-* The thirteen copied modules are the reference's byte for byte except
-  ``repro.`` → ``repro_torch.`` in their import lines, and the copies
-  give the reference's traces and contract table.
+* The copied modules are the reference's byte for byte except
+  ``repro.`` → ``repro_torch.`` in their import lines (and, in
+  ``configs/base.py``, the one module path ``get_config`` imports by
+  name, ``SUBSTITUTIONS``), and the copies give the reference's traces,
+  contract table and configs.
 * ``compat.resolve_device`` never falls back to the CPU by itself.
 """
 
@@ -18,9 +20,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro.configs import base as ref_base
 from repro.sim import contracts as ref_contracts
 from repro.sim import traces as ref_traces
 from repro_torch import compat
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.sim import contracts, traces
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,7 +32,14 @@ COPIES = ["core/jobs.py", "core/profiles.py", "core/cluster.py",
           "core/pbj_manager.py", "core/ws_manager.py", "core/system.py",
           "core/provision.py", "core/baselines.py", "sim/pump.py",
           "sim/engine.py", "sim/traces.py", "sim/contracts.py",
-          "sim/__init__.py", "core/__init__.py"]
+          "sim/__init__.py", "core/__init__.py", "serving/autoscaler.py",
+          "configs/__init__.py", "configs/base.py"] + [
+    f"configs/{arch}.py" for arch in ARCH_IDS]
+# The one substitution outside import lines: get_config imports the arch
+# module by a string name, which must name the port's copy.
+SUBSTITUTIONS = {"configs/base.py": [(
+    'importlib.import_module(f"repro.configs.{arch}")',
+    'importlib.import_module(f"repro_torch.configs.{arch}")')]}
 
 _HYGIENE = """
 import sys
@@ -53,7 +64,11 @@ def _run_clean(body):
 def test_port_imports_no_jax_and_no_reference():
     _run_clean("import repro_torch.sim.capacity, "
                "repro_torch.kernels.round_step, repro_torch.sim.sweep, "
-               "repro_torch.sim.rounds, repro_torch.compat")
+               "repro_torch.sim.rounds, repro_torch.compat, "
+               "repro_torch.serving.autoscaler, "
+               "repro_torch.models.transformer, repro_torch.kernels.ops, "
+               "repro_torch.launch.serve; "
+               "from repro_torch.configs import all_configs; all_configs()")
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -67,7 +82,18 @@ def test_copied_module_is_the_reference_with_imports_switched(rel):
     port = (ROOT / "src" / "repro_torch" / rel).read_text()
     switched = re.sub(r"^(\s*)from repro(\.| import)", r"\1from repro_torch\2",
                       ref, flags=re.M)
+    for old, new in SUBSTITUTIONS.get(rel, []):
+        assert switched.count(old) == 1, old
+        switched = switched.replace(old, new)
     assert port == switched
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_copied_configs_equal_reference(arch):
+    got = get_config(arch)
+    assert type(got).__module__ == "repro_torch.configs.base"
+    assert dataclasses.asdict(got) == \
+        dataclasses.asdict(ref_base.get_config(arch))
 
 
 @pytest.mark.parametrize("name,args", [("nasa_ipsc", (0,)),

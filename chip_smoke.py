@@ -5,9 +5,9 @@
 Phases, one JSON line each (any failure raises and exits nonzero):
 
   device           the card's name and power limit (nvidia-smi)
-  build            nvcc builds of the three kernels for sm_90a
-                   (round_step, flash_attention, flash_decode), started
-                   together
+  build            nvcc builds of the four kernels for sm_90a
+                   (round_step, flash_attention, flash_decode, ssd_scan),
+                   started together
   kernel_vs_plain  the FB and FLB-NUB lanes of paper_grid(128), packed
                    exactly as the sweep packs them (one pack per trace:
                    NASA iPSC and SDSC BLUE, each with WorldCup): the CUDA
@@ -47,9 +47,30 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    32 decode steps at one position through flash decode
                    (26 launches a step), teacher-forced against the
                    plain route (logits within 0.25, argmax agreement at
-                   least 0.9)
+                   least 0.9); a profile of the prefill and of one step
+  ssd_kernel_vs_plain
+                   mamba2-130m's SSD scan at full width (24 heads, P 64,
+                   N 128, chunk 128): batch 1 and 8 at L 4096, L 2048
+                   with a nonzero start state, and the strongest decay
+                   (a = -16 dt), float32 and bfloat16 x / B / C, each
+                   against its plain version (elementwise atol + rtol,
+                   stated per dtype); at L 512 also against the
+                   token-by-token recurrence; device times of both
+                   (CUDA events, calls queued behind a spin) and the
+                   bound
+  serve_mamba      mamba2-130m at full width, float32: AutoscaledService
+                   of Replicas sharing one Model, 8 requests of
+                   512-4096 prompt tokens; all complete, 24 SSD launches
+                   per admission, each admission's logits and SSM state
+                   equal a plain prefill's
+  generate_mamba   mamba2-130m, bfloat16: batch-8 prefill of 4096 tokens
+                   (24 SSD launches), 32 decode steps (plain tensor code,
+                   as in the reference), teacher-forced against the plain
+                   route (logits within 0.25, argmax agreement at least
+                   0.9)
   kernels          the kernel table line: each kernel's launches on its
-                   path (sweep, serve, generate), times, bound
+                   path (sweep, serve, generate, generate_mamba), times,
+                   bound
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -78,6 +99,8 @@ from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import round_step as rsk  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
+from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
@@ -382,6 +405,34 @@ GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 4600, 32
 GEN_TOL = 0.25
 GEN_MIN_AGREEMENT = 0.9
 
+# The Mamba2 slice: mamba2-130m at full width (24 layers, d 768, 24 SSM
+# heads of 64, state 128, vocab 50280), chunk 128.
+SSM_ARCH = "mamba2_130m"
+SSD_CHUNK = 128
+# SSD kernel vs plain version, elementwise |got - want| <= atol + rtol *
+# |want| as (atol, rtol). float32: the reference's own tolerance for its
+# largest SSD case (tests/test_kernels.py); the kernel sums in another
+# order (up to 7.4e-5 apart at batch 8, L 4096 on one H100). bfloat16 x
+# / B / C: both compute y in float32 and round it once, so the float32
+# atol (near y = 0 the two float32 sums differ by more than a bfloat16
+# ulp of y) plus one bfloat16 ulp (rtol 2^-7 < 1e-2); the final state is
+# float32 in both cases.
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+SSD_STATE_TOL = (1e-4, 1e-4)
+# (batch, L, nonzero start state, strongest decay); cases up to
+# SSD_SEQ_MAX tokens are also held against the token-by-token ssd_ref.
+SSD_CASES = ((1, 4096, False, False), (8, 4096, False, False),
+             (1, 2048, True, False), (1, 2048, False, True),
+             (1, 512, False, False))
+SSD_SEQ_MAX = 512
+# serve_mamba: prompts of 512-4096 tokens (multiples of the chunk). An
+# admission's SSM states (float32, entries of O(10) after 24 layers)
+# against a plain prefill's, elementwise atol + rtol * |want|: the SSD
+# state tolerance, since the kernel and the plain scan sum in two orders.
+SSM_PROMPTS = tuple(int(x) for x in np.linspace(512, 4096, 8))
+# generate_mamba: bfloat16, batch 8, a 4096-token prefill.
+GEN_SSM_BATCH, GEN_SSM_PROMPT = 8, 4096
+
 
 def visible_pairs(s, window):
     """(query, key) pairs causal attention with ``window`` evaluates."""
@@ -398,9 +449,14 @@ def bound(nbytes, flops, dtype):
 
 def compare(got, want, dtype):
     """The kernel's output against the plain version's under
-    ``KERNEL_TOL``: max abs and relative (Frobenius) error, and whether
-    every element lies within atol + rtol * |want|."""
-    atol, rtol = KERNEL_TOL[dtype]
+    ``KERNEL_TOL``."""
+    return errors(got, want, *KERNEL_TOL[dtype])
+
+
+def errors(got, want, atol, rtol):
+    """Max abs and relative (Frobenius) error of ``got`` against
+    ``want``, and whether every element lies within atol + rtol *
+    |want|."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
     return dict(max_abs_err=float(d.max()),
@@ -534,12 +590,14 @@ def zero_counts():
     rsk.chunk_step.launches = 0
     fak.flash_attention_bkv.launches = 0
     fdk.flash_decode_bkv.launches = 0
+    ssk.ssd_scan_bh.launches = 0
 
 
 def read_counts():
     return {"round_step": rsk.chunk_step.launches,
             "flash_attention": fak.flash_attention_bkv.launches,
-            "flash_decode": fdk.flash_decode_bkv.launches}
+            "flash_decode": fdk.flash_decode_bkv.launches,
+            "ssd_scan": ssk.ssd_scan_bh.launches}
 
 
 def breakdown(fn):
@@ -576,9 +634,16 @@ def breakdown(fn):
                 top_kernels_ms=top)
 
 
-def serve_phase(cfg, device):
+def ssm_states(cache):
+    """The Mamba layers' SSM states of a cache (none for attention)."""
+    return {name: layer["state"].clone() for name, layer in cache.items()
+            if "state" in layer}
+
+
+def serve_phase(cfg, device, phase, prompts, max_len, kernel):
     """The serving path at full width: AutoscaledService of Replicas that
-    share one float32 gemma2-2b, eight requests, prompts 500–6000."""
+    share one float32 model, one request per prompt length; ``kernel``
+    launches once per layer of each admission's prefill."""
     model = Model(cfg, device, compute_dtype=torch.float32).init(LM_SEED)
     prefills = []
     prefill = model.prefill
@@ -587,7 +652,7 @@ def serve_phase(cfg, device):
         t0 = time.perf_counter()
         logits, cache = prefill(batch, cache)
         torch.cuda.synchronize()
-        prefills.append((batch["tokens"], logits,
+        prefills.append((batch["tokens"], logits, ssm_states(cache),
                          time.perf_counter() - t0))
         return logits, cache
 
@@ -595,12 +660,12 @@ def serve_phase(cfg, device):
     rng = np.random.default_rng(LM_SEED)
     requests = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n)
                         .astype(np.int32), max_new_tokens=SERVE_NEW)
-                for i, n in enumerate(SERVE_PROMPTS)]
+                for i, n in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
     svc = AutoscaledService(cfg, device, slots_per_replica=SERVE_SLOTS,
-                            max_len=SERVE_MAX_LEN, params=model)
+                            max_len=max_len, params=model)
     for r in requests:
         svc.submit(r, now=0.0)
     trace = []
@@ -615,73 +680,85 @@ def serve_phase(cfg, device):
     peak = torch.cuda.max_memory_allocated()
     del model.prefill
     if len(svc.completed) != len(requests):
-        raise AssertionError(f"serve: {len(svc.completed)} of "
+        raise AssertionError(f"{phase}: {len(svc.completed)} of "
                              f"{len(requests)} requests completed")
-    if len(prefills) != len(requests) or \
-            counts["flash_attention"] != cfg.n_layers * len(prefills):
-        raise AssertionError(f"serve: {counts} launches for "
+    if len(prefills) != len(requests) or any(
+            n != (cfg.n_layers * len(prefills) if k == kernel else 0)
+            for k, n in counts.items()):
+        raise AssertionError(f"{phase}: {counts} launches for "
                              f"{len(prefills)} admissions")
     tokens = sum(len(r.output) for r in svc.completed)
     replicas = max(trace)
     del svc
     torch.cuda.empty_cache()
-    # Each admission's logits against a plain prefill of its prompt.
+    # Each admission's logits (and SSM states) against a plain prefill of
+    # its prompt.
     plain = model.with_impl("torch")
-    errs = []
-    for toks, logits, _ in prefills:
+    errs, state_errs = [], []
+    for toks, logits, states, _ in prefills:
         cache = plain.init_cache(1, toks.shape[1], dtype=torch.float32)
-        want, _ = plain.prefill({"tokens": toks}, cache)
+        want, cache = plain.prefill({"tokens": toks}, cache)
         errs.append(float((logits - want).abs().max()))
+        want_states = ssm_states(cache)
+        state_errs += [errors(states[k], want_states[k], *SSD_STATE_TOL)
+                       for k in states]
         del cache, want
     # Where a serving step's time goes: the longest admission's prefill
     # through the kernels, and one decode step of a full replica (4 slots
-    # at their own positions, the masked path).
+    # at their own positions).
     toks = prefills[-1][0]
     prefill_profile = breakdown(lambda: model.prefill(
         {"tokens": toks}, model.init_cache(1, toks.shape[1],
                                            dtype=torch.float32)))
-    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN, dtype=torch.float32)
-    slot_pos = torch.as_tensor(SERVE_PROMPTS[-SERVE_SLOTS:], device=device)
+    cache = model.init_cache(SERVE_SLOTS, max_len, dtype=torch.float32)
+    slot_pos = torch.as_tensor(prompts[-SERVE_SLOTS:], device=device)
     slot_tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device=device)
     step_profile = breakdown(lambda: model.decode(slot_tok, cache, slot_pos))
     del cache
     out = dict(arch=cfg.name, dtype="float32", requests=len(requests),
-               prompts=list(SERVE_PROMPTS), max_new_tokens=SERVE_NEW,
-               slots_per_replica=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+               prompts=list(prompts), max_new_tokens=SERVE_NEW,
+               slots_per_replica=SERVE_SLOTS, max_len=max_len,
                completed=len(requests), tokens=tokens, wall_s=wall,
-               tokens_per_s=tokens / wall, prefill_s=sum(p[2] for p in
+               tokens_per_s=tokens / wall, prefill_s=sum(p[3] for p in
                                                          prefills),
-               prefill_s_each=[p[2] for p in prefills],
+               prefill_s_each=[p[3] for p in prefills],
                max_replicas=replicas, instance_trace=trace,
                peak_memory_gb=peak / 1e9, launches=counts,
                prefill_max_abs_err=errs, tol=SERVE_TOL,
                prefill_profile=prefill_profile, step_profile=step_profile)
-    emit("serve", **out)
+    if state_errs:
+        out.update(state_max_abs_err=[e["max_abs_err"] for e in state_errs],
+                   state_rel_err=[e["rel_err"] for e in state_errs],
+                   state_tol=state_errs[0]["tol"])
+    emit(phase, **out)
     if not max(errs) <= SERVE_TOL:
-        raise AssertionError(f"serve: prefill logits differ from the plain "
-                             f"path: {errs}")
+        raise AssertionError(f"{phase}: prefill logits differ from the "
+                             f"plain path: {errs}")
+    if not all(e["within_tol"] for e in state_errs):
+        raise AssertionError(f"{phase}: SSM states differ from the plain "
+                             f"path: {state_errs}")
     del model, plain, prefills
     torch.cuda.empty_cache()
     return out
 
 
-def generate_phase(cfg, device):
-    """The decode cell's path: bfloat16 gemma2-2b, batch 8, a 4600-token
-    prefill, then 32 decode steps at one scalar position (flash decode);
-    the plain route replays the same tokens (teacher-forced)."""
+def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
+    """The decode cell's path: bfloat16 weights and compute, a batch
+    prefill of ``prompt`` tokens, then GEN_STEPS decode steps at one
+    scalar position; the plain route replays the same tokens
+    (teacher-forced). ``expected``: the launches of each kernel."""
     model = Model(cfg, device, compute_dtype=torch.bfloat16,
                   param_dtype=torch.bfloat16).init(LM_SEED)
     rng = np.random.default_rng(LM_SEED + 1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                        (GEN_BATCH, GEN_PROMPT)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt)),
                            device=device)
     zero_counts()
     t0 = time.perf_counter()
-    cache = model.init_cache(GEN_BATCH, DECODE_CACHE, dtype=torch.bfloat16)
+    cache = model.init_cache(batch, cache_len, dtype=torch.bfloat16)
     lg0, cache = model.prefill({"tokens": toks}, cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    pos = torch.tensor(GEN_PROMPT, device=device)
+    pos = torch.tensor(prompt, device=device)
     nxt = torch.argmax(lg0[:, -1], dim=-1)
     fed, logits = [], []
     t1 = time.perf_counter()
@@ -694,16 +771,20 @@ def generate_phase(cfg, device):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t1
     counts = read_counts()
-    if counts["flash_decode"] != cfg.n_layers * GEN_STEPS or \
-            counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"generate: launches {counts}")
+    if any(counts[k] != expected.get(k, 0) for k in counts):
+        raise AssertionError(f"{phase}: launches {counts}, expected "
+                             f"{expected}")
     step_profile = breakdown(lambda: model.decode(nxt[:, None], cache, pos))
     del cache
     torch.cuda.empty_cache()
+    prefill_profile = breakdown(lambda: model.prefill(
+        {"tokens": toks}, model.init_cache(batch, cache_len,
+                                           dtype=torch.bfloat16)))
+    torch.cuda.empty_cache()
     plain = model.with_impl("torch")
-    cache = plain.init_cache(GEN_BATCH, DECODE_CACHE, dtype=torch.bfloat16)
+    cache = plain.init_cache(batch, cache_len, dtype=torch.bfloat16)
     lp0, cache = plain.prefill({"tokens": toks}, cache)
-    pos = torch.tensor(GEN_PROMPT, device=device)
+    pos = torch.tensor(prompt, device=device)
     errs, means, agree = [], [], []
     for tok, lg in zip(fed, logits):
         lp, cache = plain.decode(tok[:, None], cache, pos)
@@ -714,26 +795,82 @@ def generate_phase(cfg, device):
                             torch.argmax(lg, -1)).float().mean()))
         pos = pos + 1
     prefill_err = float((lg0.float() - lp0.float()).abs().max())
-    out = dict(arch=cfg.name, dtype="bfloat16", batch=GEN_BATCH,
-               prompt=GEN_PROMPT, steps=GEN_STEPS, cache=DECODE_CACHE,
+    out = dict(arch=cfg.name, dtype="bfloat16", batch=batch,
+               prompt=prompt, steps=GEN_STEPS, cache=cache_len,
                prefill_s=prefill_s, decode_s=decode_s,
                decode_ms_per_step=1e3 * decode_s / GEN_STEPS,
-               tokens_per_s=GEN_BATCH * GEN_STEPS / decode_s,
+               tokens_per_s=batch * GEN_STEPS / decode_s,
                launches=counts, prefill_max_abs_err=prefill_err,
                step_max_abs_err=max(errs), step_mean_abs_err=max(means),
                argmax_agreement=sum(agree) / len(agree), tol=GEN_TOL,
                min_argmax_agreement=GEN_MIN_AGREEMENT,
-               step_profile=step_profile)
-    emit("generate", **out)
+               prefill_profile=prefill_profile, step_profile=step_profile)
+    emit(phase, **out)
     if not max(errs + [prefill_err]) <= GEN_TOL:
-        raise AssertionError(f"generate: logits differ from the plain "
+        raise AssertionError(f"{phase}: logits differ from the plain "
                              f"route beyond {GEN_TOL}: {errs}")
     if not out["argmax_agreement"] >= GEN_MIN_AGREEMENT:
-        raise AssertionError(f"generate: argmax agreement "
+        raise AssertionError(f"{phase}: argmax agreement "
                              f"{out['argmax_agreement']} below "
                              f"{GEN_MIN_AGREEMENT}")
     del model, plain, cache
     torch.cuda.empty_cache()
+    return out
+
+
+def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
+             strong_decay=False, sequential=False):
+    """ssd_scan_bh vs ssd_scan_bh_ref at the model's heads, head dim and
+    state, inputs scaled as the reference's tests scale them; with
+    ``sequential``, both also against the token-by-token ssd_ref."""
+    _, nh, n = ssm_dims(cfg)
+    p, bh, q = cfg.ssm_head_dim, batch * nh, SSD_CHUNK
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = (0.5 * randn(bh, seq, p)).to(dtype)
+    if strong_decay:
+        # dt·A with A = -16 (A_log = log 16, the last head) and dt in
+        # [0.5, 1.5): the upper triangle's exponents overflow to inf.
+        a = -16.0 * (0.5 + torch.rand(bh, seq, generator=gen, device=device))
+    else:
+        a = -torch.nn.functional.softplus(randn(bh, seq))
+    B, C = ((0.3 * randn(bh, seq, n)).to(dtype) for _ in range(2))
+    s0 = 0.3 * randn(bh, p, n) if with_s0 else None
+
+    def kernel():
+        return ssk.ssd_scan_bh(x, a, B, C, s0=s0, chunk=q)
+
+    def plain():
+        return kref.ssd_scan_bh_ref(x, a, B, C, s0=s0, chunk=q)
+
+    (y, sT), (want_y, want_s) = kernel(), plain()
+    check = errors(y, want_y, *SSD_TOL[dtype])
+    state = errors(sT, want_s, *SSD_STATE_TOL)
+    check.update(state_max_abs_err=state["max_abs_err"],
+                 state_rel_err=state["rel_err"], state_tol=state["tol"])
+    check["within_tol"] &= state["within_tol"]
+    if sequential:
+        seq_y, seq_s = kref.ssd_ref(x, a, B, C, s0)
+        for got, want, tol, key in ((y, seq_y, SSD_TOL[dtype], "seq"),
+                                    (sT, seq_s, SSD_STATE_TOL, "seq_state")):
+            e = errors(got, want, *tol)
+            check[f"{key}_max_abs_err"] = e["max_abs_err"]
+            check["within_tol"] &= e["within_tol"]
+    ms, device_bound = queued_ms(kernel, 5)
+    flops = bh * (seq // q) * 2 * q * (q * n + q * p + 2 * n * p)
+    e = x.element_size()
+    nbytes = (e * (2 * x.numel() + B.numel() + C.numel()) + 4 * a.numel()
+              + 4 * bh * p * n * (2 if with_s0 else 1))
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    out = dict(batch=batch, seq=seq, heads=nh, head_dim=p, state=n,
+               chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
+               strong_decay=strong_decay, a_min=float(a.min()), **check,
+               ms=ms, ms_device_bound=device_bound,
+               plain_ms=queued_ms(plain, 2)[0], bound_ms=bound_ms,
+               bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops)
+    del x, a, B, C, s0, y, sT, want_y, want_s
     return out
 
 
@@ -760,7 +897,7 @@ def main() -> int:
 
     # --- build: one nvcc per source, all started together
     t0 = time.time()
-    libraries = (rsk.LIBRARY, fak.LIBRARY, fdk.LIBRARY)
+    libraries = (rsk.LIBRARY, fak.LIBRARY, fdk.LIBRARY, ssk.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(verbose=True),
                               libraries))
@@ -794,7 +931,8 @@ def main() -> int:
     sweep_s = time.time() - t0
     counts = read_counts()
     launches = counts["round_step"]
-    if launches == 0 or counts["flash_attention"] or counts["flash_decode"]:
+    if launches == 0 or counts["flash_attention"] or counts["flash_decode"] \
+            or counts["ssd_scan"]:
         raise AssertionError(f"the sweep's launches: {counts}")
     # kernel_vs_plain stepped the same packs the same way.
     f32 = [r for r in runs if r["dtype"] == "float32"]
@@ -863,8 +1001,26 @@ def main() -> int:
                         gen, q_scale=CAP_Q_SCALE) for dt in dtypes]
     check_cases("decode_kernel_vs_plain", dec)
     torch.cuda.empty_cache()
-    serve = serve_phase(cfg, device)
-    generate = generate_phase(cfg, device)
+    serve = serve_phase(cfg, device, "serve", SERVE_PROMPTS, SERVE_MAX_LEN,
+                        "flash_attention")
+    generate = generate_phase(
+        cfg, device, "generate", GEN_BATCH, GEN_PROMPT, DECODE_CACHE,
+        {"flash_decode": cfg.n_layers * GEN_STEPS,
+         "flash_attention": cfg.n_layers})
+
+    # --- the Mamba2 slice at mamba2-130m's full width
+    ssm_cfg = get_config(SSM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    ssd = [ssd_case(ssm_cfg, batch, seq, dt, device, gen, with_s0=s0,
+                    strong_decay=strong, sequential=seq <= SSD_SEQ_MAX)
+           for batch, seq, s0, strong in SSD_CASES for dt in dtypes]
+    check_cases("ssd_kernel_vs_plain", ssd)
+    torch.cuda.empty_cache()
+    serve_phase(ssm_cfg, device, "serve_mamba", SSM_PROMPTS, SERVE_MAX_LEN,
+                "ssd_scan")
+    generate_ssm = generate_phase(
+        ssm_cfg, device, "generate_mamba", GEN_SSM_BATCH, GEN_SSM_PROMPT,
+        GEN_SSM_PROMPT + GEN_STEPS, {"ssd_scan": ssm_cfg.n_layers})
 
     # --- the kernel table line
     # round_step: times and bounds at the main path's shapes, the float32
@@ -915,6 +1071,24 @@ def main() -> int:
             "bound_by": sel[0]["bound_by"],
             "library_ms": mean_of(sel, "library_ms"),
         })
+    # ssd_scan: the generate_mamba path's bfloat16 prefill (batch 8, L
+    # 4096), the launches of that path.
+    sel = [c for c in ssd if c["batch"] == GEN_SSM_BATCH and
+           c["seq"] == GEN_SSM_PROMPT and c["dtype"] == "bfloat16" and
+           not c["with_s0"] and not c["strong_decay"]]
+    line["kernels"].append({
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:79",
+        "launches": generate_ssm["launches"]["ssd_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in ssd),
+        "ms": mean_of(sel, "ms"),
+        "plain_ms": mean_of(sel, "plain_ms"),
+        "bound_ms": mean_of(sel, "bound_ms"),
+        "bound_by": sel[0]["bound_by"],
+        "library_ms": None,
+    })
     emit("chain", chain_ms=per_launch("chain_ms"), bound_ms=bound_ms,
          note="serial chain of block barriers per launch x measured "
               "barrier cost, beside the bytes/operations bound")

@@ -14,14 +14,15 @@ version, for NVIDIA Hopper (``sm_90a``).
   scalar position (split-K over the cache, then a combine pass),
   replacing ``repro.kernels.flash_decode.flash_decode_bkv``. Source:
   ``csrc/flash_decode.cu``.
-* ``ref.py`` — the attention kernels' plain versions; ``ops.py`` — the
+* ``ssd_scan.py`` — the Mamba2 SSD chunked scan (chunk states, a
+  sequential pass over the chunks, chunk outputs: three launches per
+  call), replacing ``repro.kernels.ssd_scan.ssd_scan_bh``. Source:
+  ``csrc/ssd_scan.cu``.
+* ``ref.py`` — the model kernels' plain versions; ``ops.py`` — the
   model-layout entry points the models call.
 
 Every source is built with nvcc into ``build/`` at first use and bound
 with ``ctypes`` (``cudalib.CudaLibrary``). A kernel wrapper takes CUDA
 tensors and launches its kernel or raises; it counts its launches in
 ``<wrapper>.launches``.
-
-The JAX package's fourth Pallas kernel, the Mamba2 SSD scan, is not
-ported yet (``ops.ssd`` raises).
 """

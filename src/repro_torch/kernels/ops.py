@@ -1,25 +1,27 @@
-"""Model-layout entry points of the attention kernels.
+"""Model-layout entry points of the model kernels.
 
 The counterparts of ``repro.kernels.ops``: ``flash_attention`` over
-(b, s, h, hd) tensors and ``flash_decode`` over the decode-native
-(b, kv, s, hd) cache, folded into the kernels' layouts exactly as the
-JAX package folds them (consecutive G = h / kv query heads share one kv
-head). On CUDA tensors they launch the CUDA kernels
-(``flash_attention.flash_attention_bkv``,
-``flash_decode.flash_decode_bkv``); on CPU tensors, and only there, they
-run the kernels' plain versions (``ref``), which is what the CPU tests
-reach through ``Model(impl="cuda")``.
+(b, s, h, hd) tensors, ``flash_decode`` over the decode-native
+(b, kv, s, hd) cache and ``ssd`` over (b, l, h, p) tensors with grouped
+B / C, folded into the kernels' layouts exactly as the JAX package folds
+them (consecutive G = h / kv query heads share one kv head; B / C groups
+repeated to heads, batch × heads folded). On CUDA tensors they launch
+the CUDA kernels (``flash_attention.flash_attention_bkv``,
+``flash_decode.flash_decode_bkv``, ``ssd_scan.ssd_scan_bh``); on CPU
+tensors, and only there, they run the kernels' plain versions (``ref``),
+which is what the CPU tests reach through ``Model(impl="cuda")``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_bkv
 from repro_torch.kernels.flash_decode import flash_decode_bkv
+from repro_torch.kernels.ssd_scan import ssd_scan_bh
 
 __all__ = ["flash_attention", "flash_decode", "ssd"]
 
@@ -61,10 +63,24 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, hd)
 
 
-def ssd(*args, **kwargs):
-    """The Mamba2 SSD chunked scan (``repro.kernels.ops.ssd``) is not
-    ported yet: it comes with the mamba2_130m slice (ROADMAP, "Next for
-    the port": kernel B4)."""
-    raise NotImplementedError(
-        "ops.ssd: the SSD scan kernel is not ported yet (ROADMAP B4, the "
-        "mamba2_130m slice)")
+def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+        *, init_state: Optional[torch.Tensor] = None,
+        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (b, l, h, p); a (b, l, h); B/C (b, l, g, n);
+    init_state (b, h, p, n). Returns (y (b, l, h, p), state (b, h, p, n)
+    in float32)."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = torch.repeat_interleave(B, rep, dim=2).permute(0, 2, 1, 3) \
+        .reshape(b * h, l, n).contiguous()
+    Ch = torch.repeat_interleave(C, rep, dim=2).permute(0, 2, 1, 3) \
+        .reshape(b * h, l, n).contiguous()
+    xf = x.permute(0, 2, 1, 3).reshape(b * h, l, p).contiguous()
+    af = a.permute(0, 2, 1).reshape(b * h, l).contiguous()
+    s0 = None if init_state is None else \
+        init_state.reshape(b * h, p, n).float()
+    fn = ssd_scan_bh if x.device.type == "cuda" else ref.ssd_scan_bh_ref
+    y, sT = fn(xf, af, Bh, Ch, s0=s0, chunk=chunk)
+    return (y.reshape(b, h, l, p).permute(0, 2, 1, 3),
+            sT.reshape(b, h, p, n))

@@ -11,8 +11,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-__all__ = ["rms_norm", "rope", "softcap", "normal_init", "KeyGen",
-           "promote"]
+__all__ = ["rms_norm", "rms_norm_gated", "rope", "softcap", "normal_init",
+           "KeyGen", "promote"]
 
 
 def promote(*xs: torch.Tensor):
@@ -32,6 +32,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dtype)
+
+
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(z))."""
+    return rms_norm(x * torch.nn.functional.silu(z.float()).to(x.dtype), w,
+                    eps)
 
 
 # ---------------------------------------------------------------------- RoPE

@@ -1,5 +1,6 @@
 """Decoder LM assembly: the counterpart of ``repro.models.transformer``
-for dense self-attention models (gemma2, smollm, qwen).
+for dense self-attention models (gemma2, smollm, qwen) and Mamba2 SSM
+models (mamba2).
 
 ``Model`` is an ``nn.Module`` that holds its weights with the JAX
 package's parameter tree as its state-dict names (``embed``,
@@ -17,11 +18,13 @@ Entry points:
   * ``decode(tokens, cache, pos)``   — one serve step
 
 ``impl="cuda"`` runs attention through the flash-attention and
-flash-decode kernels (``kernels/ops``), ``impl="torch"`` through the
-plain tensor path; ``None`` picks ``"cuda"`` on a CUDA device and
-``"torch"`` on the CPU. Caches are updated in place.
+flash-decode kernels and the Mamba2 scan through the SSD kernel
+(``kernels/ops``), ``impl="torch"`` through the plain tensor path;
+``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
+Caches are updated in place; Mamba caches are float32 whatever the cache
+dtype asked for, as in the reference.
 
-Not ported yet (raise ``NotImplementedError``): Mamba and hybrid mixers,
+Not ported yet (raise ``NotImplementedError``): the hybrid jamba stack,
 cross-attention (vlm / audio), MoE MLPs, encoders, and the training
 ``loss`` (ROADMAP, queued work of the port).
 """
@@ -35,9 +38,10 @@ import torch
 from torch import nn
 
 from repro_torch.compat import Device, resolve_device
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, NONE,
-                                      ArchConfig, LayerSpec)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA,
+                                      NONE, ArchConfig, LayerSpec)
 from repro_torch.models import attention as A
+from repro_torch.models import mamba2 as M
 from repro_torch.models import mlp as F
 from repro_torch.models.common import KeyGen, normal_init, rms_norm, softcap
 
@@ -49,9 +53,11 @@ IMPLS = ("torch", "cuda")
 def _unsupported(cfg: ArchConfig, pattern) -> Optional[str]:
     if cfg.encoder_layers:
         return "encoder-decoder models (whisper)"
+    if cfg.family == "hybrid":
+        return "the hybrid attention / Mamba / MoE stack (jamba)"
     for sp in pattern:
-        if sp.mixer not in (ATTN, ATTN_LOCAL):
-            return f"the {sp.mixer!r} mixer (Mamba / cross-attention)"
+        if sp.mixer not in (ATTN, ATTN_LOCAL, MAMBA):
+            return f"the {sp.mixer!r} mixer (cross-attention)"
         if sp.cross:
             return "cross-attention sublayers"
         if sp.mlp not in (DENSE, NONE):
@@ -71,9 +77,16 @@ class _Layer(nn.Module):
         super().__init__()
         n, d = cfg.n_periods, cfg.d_model
         self.norm1 = _param((n, d), torch.float32, device)
+        if spec.mixer == MAMBA:
+            mix = {name: (shape, torch.float32 if name in M.F32_PARAMS
+                          else dtype)
+                   for name, (shape, _) in M.mamba_shapes(cfg).items()}
+        else:
+            mix = {name: (shape, dtype)
+                   for name, (shape, _) in A.attn_shapes(cfg).items()}
         self.mix = nn.ParameterDict({
-            name: _param((n,) + shape, dtype, device)
-            for name, (shape, _) in A.attn_shapes(cfg).items()})
+            name: _param((n,) + shape, dt, device)
+            for name, (shape, dt) in mix.items()})
         if spec.mlp != NONE:
             self.norm2 = _param((n, d), torch.float32, device)
             self.mlp = nn.ParameterDict({
@@ -122,7 +135,7 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: {missing} is not ported yet (ROADMAP, queued "
                 f"work of the port); the port runs dense self-attention "
-                f"models")
+                f"and Mamba2 models")
         dev = self.device
         self.embed = _param((cfg.vocab, cfg.d_model), param_dtype, dev)
         self.final_norm = _param((cfg.d_model,), torch.float32, dev)
@@ -146,7 +159,8 @@ class Model(nn.Module):
         """Fill every weight from one ``torch.Generator`` seeded with
         ``seed`` on the model's device, period by period, as the
         reference's initialisers do: truncated-normal matrices with the
-        reference's standard deviations, zero norms and biases. The
+        reference's standard deviations, zero norms and biases, and the
+        Mamba layers' deterministic ``A_log``, ``D`` and ``dt_bias``. The
         numbers differ from the JAX package's ``Model.init(seed)``; the
         tests load those through ``convert.params_from_jax``."""
         kg = KeyGen(seed, self.device)
@@ -156,9 +170,10 @@ class Model(nn.Module):
         for name, t in self.named_parameters():
             if "norm" in name:
                 t.zero_()
-        for layer in self.blocks.values():
+        for layer, sp in zip(self.blocks.values(), self.pattern):
+            init_mix = M.init_mamba if sp.mixer == MAMBA else A.init_attn
             for i in range(cfg.n_periods):
-                for name, t in A.init_attn(kg, cfg, dt, dev).items():
+                for name, t in init_mix(kg, cfg, dt, dev).items():
                     layer.mix[name][i].copy_(t)
                 if hasattr(layer, "mlp"):
                     for name, t in F.init_dense_mlp(kg, cfg, dt,
@@ -174,13 +189,20 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> Dict:
+        """Attention layers: K/V caches of ``max_len`` in ``dtype``;
+        Mamba layers: the SSM state and conv tails in float32."""
         n = self.cfg.n_periods
-        return {f"l{i}": {name: torch.zeros((n,) + t.shape, dtype=dtype,
+
+        def layer(sp):
+            if sp.mixer == MAMBA:
+                return M.init_mamba_cache(self.cfg, batch, torch.float32,
+                                          "meta")
+            return A.init_cache(self.cfg, batch, max_len, dtype, "meta")
+
+        return {f"l{i}": {name: torch.zeros((n,) + t.shape, dtype=t.dtype,
                                             device=self.device)
-                          for name, t in A.init_cache(
-                              self.cfg, batch, max_len, dtype,
-                              "meta").items()}
-                for i in range(len(self.pattern))}
+                          for name, t in layer(sp).items()}
+                for i, sp in enumerate(self.pattern)}
 
     # ------------------------------------------------------------ forward
 
@@ -200,6 +222,14 @@ class Model(nn.Module):
         return softcap(logits, self.cfg.final_softcap)
 
     def _mixer(self, lp, spec: LayerSpec, h, mode, cache, pos):
+        if spec.mixer == MAMBA:
+            if mode == "full":
+                return M.mamba_full(lp["mix"], h, self.cfg,
+                                    self.impl), cache
+            if mode == "prefill":
+                return M.mamba_prefill(lp["mix"], h, self.cfg, cache,
+                                       self.impl)
+            return M.mamba_decode(lp["mix"], h, self.cfg, cache)
         local = spec.mixer == ATTN_LOCAL
         if mode == "full":
             return A.attend_full(lp["mix"], h, self.cfg, local,

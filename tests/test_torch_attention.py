@@ -146,7 +146,3 @@ def test_cuda_wrappers_take_cuda_tensors_only(fn, args):
         fn(*tensors)
     assert fn.launches == before
 
-
-def test_ssd_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        ops.ssd(None, None, None, None)

@@ -184,12 +184,14 @@ def test_softcap_that_bites_on_the_card(kernel, dtype):
     assert not _close(got, plain(q, k, v, *extra, window=1024), dtype)
 
 
-@pytest.mark.parametrize("arch", ["gemma2_2b", "smollm_135m"])
+@pytest.mark.parametrize("arch", ["gemma2_2b", "smollm_135m",
+                                  "mamba2_130m"])
 def test_model_kernel_path_equals_plain_path_on_the_card(arch):
-    """Reduced model: prefill and a scalar-position decode through both
-    kernels (impl="cuda") against the plain path (impl="torch"), float32
-    (the models' own tolerance, atol 5e-5 / rtol 5e-4, widened to 1e-4
-    for the kernels' summation order)."""
+    """Reduced model: prefill and a scalar-position decode through the
+    kernels (impl="cuda": both attention kernels, or the SSD scan)
+    against the plain path (impl="torch"), float32 (the models' own
+    tolerance, atol 5e-5 / rtol 5e-4, widened to 1e-4 for the kernels'
+    summation order)."""
     from repro_torch.configs.base import get_config, reduced_config
     from repro_torch.models.transformer import Model
     dev = _cuda_or_skip()
@@ -207,3 +209,90 @@ def test_model_kernel_path_equals_plain_path_on_the_card(arch):
         outs.append((lg0, lg1))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=5e-4)
+
+
+# ------------------------------------------------ the SSD scan on the card
+#
+# ssd_scan_bh against ssd_scan_bh_ref on the same CUDA tensors: the CPU
+# tests' shapes (the reference's SSD_CASES, folded to the kernel layout),
+# the reduced model's, and mamba2-130m's full width (24 heads, P 64, N
+# 128, chunk 128). Tolerance, elementwise atol + rtol * |want|, the same
+# as chip_smoke.py's: float32 1e-4 + 1e-4 (the reference's own for its
+# largest SSD case; the kernel sums in another order); bfloat16 y 1e-4 +
+# 1e-2 (both compute in float32 and round once: the float32 atol, which
+# near y = 0 exceeds a bfloat16 ulp of y, plus one bfloat16 ulp), the
+# float32 final state 1e-4 + 1e-4.
+
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+STATE_TOL = (1e-4, 1e-4)
+SSD_CASES = [
+    # (bh, l, p, n, chunk)
+    (8, 256, 64, 32, 128), (8, 128, 32, 16, 64), (8, 512, 128, 64, 128),
+    (4, 256, 64, 32, 128), (16, 24, 16, 16, 128),   # reduced mamba2
+    (24, 1024, 64, 128, 128),                       # mamba2-130m, batch 1
+]
+
+
+def _ssd_inputs(bh, l, p, n, dtype, dev, seed, with_s0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x = (0.5 * randn(bh, l, p)).to(dtype)
+    a = -torch.nn.functional.softplus(randn(bh, l))
+    B, C = ((0.3 * randn(bh, l, n)).to(dtype) for _ in range(2))
+    s0 = 0.3 * randn(bh, p, n) if with_s0 else None
+    return x, a, B, C, s0
+
+
+def _within(got, want, atol, rtol):
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,l,p,n,chunk", SSD_CASES)
+def test_ssd_scan_kernel_equals_plain_on_the_card(bh, l, p, n, chunk, dtype,
+                                                  with_s0):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bh
+    dev = _cuda_or_skip()
+    x, a, B, C, s0 = _ssd_inputs(bh, l, p, n, dtype, dev, 4, with_s0)
+    before = ssd_scan_bh.launches
+    y, sT = ssd_scan_bh(x, a, B, C, s0=s0, chunk=chunk)
+    want_y, want_s = ref.ssd_scan_bh_ref(x, a, B, C, s0=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bh.launches == before + 1
+    assert y.dtype == dtype and sT.dtype == torch.float32
+    assert _within(y, want_y, *SSD_TOL[dtype])
+    assert _within(sT, want_s, *STATE_TOL)
+
+
+def test_ssd_scan_kernel_strong_decay_on_the_card():
+    """a = -16 · dt, dt in [0.5, 1.5): the upper triangle's exponents
+    overflow; the kernel selects 0 there (finite, equal to the plain
+    version and to the token-by-token recurrence)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bh
+    dev = _cuda_or_skip()
+    x, _, B, C, _ = _ssd_inputs(24, 512, 64, 128, torch.float32, dev, 5,
+                                False)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    a = -16.0 * (0.5 + torch.rand(24, 512, generator=gen, device=dev))
+    y, sT = ssd_scan_bh(x, a, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(sT).all()
+    for want_y, want_s in (ref.ssd_scan_bh_ref(x, a, B, C),
+                           ref.ssd_ref(x, a, B, C)):
+        assert _within(y, want_y, *SSD_TOL[torch.float32])
+        assert _within(sT, want_s, *STATE_TOL)
+
+
+def test_ssd_scan_wrapper_takes_cuda_tensors_only():
+    from repro_torch.kernels.ssd_scan import ssd_scan_bh
+    before = ssd_scan_bh.launches
+    x, B = torch.zeros(2, 16, 8), torch.zeros(2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan_bh(x, torch.zeros(2, 16), B, B)
+    assert ssd_scan_bh.launches == before

@@ -67,6 +67,7 @@ def test_port_imports_no_jax_and_no_reference():
                "repro_torch.sim.rounds, repro_torch.compat, "
                "repro_torch.serving.autoscaler, "
                "repro_torch.models.transformer, repro_torch.kernels.ops, "
+               "repro_torch.models.mamba2, repro_torch.kernels.ssd_scan, "
                "repro_torch.launch.serve; "
                "from repro_torch.configs import all_configs; all_configs()")
 

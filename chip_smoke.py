@@ -14,18 +14,31 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    round step against its plain PyTorch version from the
                    same state after EVERY chunk, float32 over two weeks
                    and float64 over a two-day slice; exact except the
-                   three time integrals. Each line carries the kernel's
-                   (CUDA events, calls queued behind a spin) and the
-                   plain version's times at the middle chunk,
-                   the bound and the kernel's serial-chain time
+                   three time integrals. First with coalescing off (batch
+                   1), then with the contended-stretch coalescer on
+                   (batch 8), where every pack must coalesce. Each line
+                   carries the kernel's (CUDA events, calls queued behind
+                   a spin) and the plain version's times at the middle
+                   chunk, the bound and the kernel's serial-chain time
   sweep            run_sweep_workloads over paper_grid(128) on both
                    traces (two weeks, mode="rounds") through the kernel;
                    rows equal the plain version's on the card; the NASA
                    FB / FLB-NUB rows inside CONTRACTS["rounds"] against
                    the event engine
-  headline         headline_queries() on the card: C = 135, FLB-NUB peak
-                   660, EC2 peak 1075 (results/BENCH_capacity.json) and
-                   the HEADLINE_CONTRACT gate
+  sweep_coalesced  the same sweep with ScanOptions(coalesce=8) through
+                   the kernel: launches equal the coalesced chunk-by-chunk
+                   check's, completed jobs equal the uncoalesced rows',
+                   the NASA rows inside CONTRACTS["rounds"] against the
+                   same event rows; launches, max rounds and wall beside
+                   the uncoalesced sweep's (both walls timed again after,
+                   in the other order)
+  headline         headline_queries() on the card: C = 135, DCS 256,
+                   FLB-NUB peak 660, EC2 peak 1075
+                   (results/BENCH_capacity.json) and the
+                   HEADLINE_CONTRACT gate
+  headline_coalesced
+                   the same queries with ScanOptions(coalesce=8): the
+                   same four answers and gate, its wall beside headline's
   attn_kernel_vs_plain, decode_kernel_vs_plain
                    gemma2-2b's attention at full width (8 / 4 heads of
                    256, softcap 50): flash attention at S 8192 and 4600,
@@ -70,7 +83,8 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    0.9)
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba), times,
-                   bound
+                   bound; round_step also with the coalesced sweep's
+                   launches and time per launch
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -122,6 +136,10 @@ INTEGRAL_SC = [rsk.SC_ACC0 + roundslib.ACC_KEYS.index(k)
                for k in ("turn_sum", "exec_sum", "node_seconds")]
 INTEGRAL_ROW = ("avg_turnaround", "avg_execution", "node_hours")
 ROUNDS_SC = rsk.SC_ACC0 + roundslib.ACC_KEYS.index("rounds")
+COALESCED_SC = rsk.SC_ACC0 + roundslib.ACC_KEYS.index("coalesced")
+# The coalescing batch of the coalesced phases: the engine's recommended
+# opt-in (the default stays 1, as in the JAX package).
+COALESCE = roundslib.COALESCE_BATCH
 # H100 SXM published peaks (NVIDIA data sheet, 700 W) for the bound:
 # HBM bandwidth and the non-tensor-core float32 / float64 rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -268,11 +286,12 @@ def queued_ms(fn, n):
     return start.elapsed_time(stop) / n, device_bound
 
 
-def sweep_lanes(workloads, horizon, dtype, device):
+def sweep_lanes(workloads, horizon, dtype, device, coalesce=None):
     """The FB and FLB-NUB lanes of paper_grid(128) as the sweep packs
     them: ``[(policy, trace index, grid, pack, spec), ...]``."""
     points = [p for p in paper_grid(128) if p.system in ("fb", "flb_nub")]
-    opts = ScanOptions(dtype=np.float64 if dtype == torch.float64 else None)
+    opts = ScanOptions(dtype=np.float64 if dtype == torch.float64 else None,
+                       coalesce=coalesce)
     (_, _, fb, flb, fb_packs, flb_packs, fb_spec,
      flb_spec) = _pack_rounds(points, workloads, horizon, opts, device)
     return [(policy, w, grid, packs[w], spec)
@@ -295,7 +314,7 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
     dur = torch.tensor(spec.duration, dtype=sc.dtype, device=sc.device)
     states, rounds_run = [], []
     max_err = 0.0
-    label = f"{policy} {trace} {str(sc.dtype)[6:]}"
+    label = f"{policy} {trace} {str(sc.dtype)[6:]} batch {spec.batch}"
     for i in range(outer_max):
         live = sc[:, rsk.SC_T] < dur
         if not bool(live.any()):
@@ -333,6 +352,7 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
     threads = -(-win.shape[-1] // 32) * 32
     b_us = barrier_us(win.shape[0], threads, sc.dtype)
     return dict(policy=policy, trace=trace, dtype=str(sc.dtype)[6:],
+                batch=spec.batch, coalesced=float(sc[:, COALESCED_SC].sum()),
                 horizon_days=horizon / DAY, lanes=int(sc.shape[0]),
                 window=int(win.shape[-1]), job_table=int(inputs[0].shape[-1]),
                 chunks=len(states), lane_rounds=sum(rounds_run),
@@ -911,15 +931,19 @@ def main() -> int:
                                                   wc)]
     trace_names = ("nasa_ipsc", "sdsc_blue")
     runs = []
-    for wl, horizon, dtype in ((workloads, big, torch.float32),
-                               (cut(workloads, small), small,
-                                torch.float64)):
-        for policy, w, grid, pk, spec in sweep_lanes(wl, horizon, dtype,
-                                                     device):
-            r = kernel_vs_plain(policy, trace_names[w], grid, pk, spec,
-                                horizon)
-            runs.append(r)
-            emit("kernel_vs_plain", **r)
+    for batch in (None, COALESCE):
+        for wl, horizon, dtype in ((workloads, big, torch.float32),
+                                   (cut(workloads, small), small,
+                                    torch.float64)):
+            for policy, w, grid, pk, spec in sweep_lanes(
+                    wl, horizon, dtype, device, coalesce=batch):
+                r = kernel_vs_plain(policy, trace_names[w], grid, pk, spec,
+                                    horizon)
+                runs.append(r)
+                emit("kernel_vs_plain", **r)
+    idle = [r for r in runs if r["batch"] > 1 and not r["coalesced"] > 0]
+    if idle:
+        raise AssertionError(f"the coalescer never engaged: {idle}")
 
     # --- the main path: the paper-grid sweep through the kernel
     grid = paper_grid(128)
@@ -935,7 +959,7 @@ def main() -> int:
             or counts["ssd_scan"]:
         raise AssertionError(f"the sweep's launches: {counts}")
     # kernel_vs_plain stepped the same packs the same way.
-    f32 = [r for r in runs if r["dtype"] == "float32"]
+    f32 = [r for r in runs if r["dtype"] == "float32" and r["batch"] == 1]
     if launches != sum(r["chunks"] for r in f32):
         raise AssertionError(f"the sweep made {launches} launches, the "
                              f"chunk-by-chunk check "
@@ -959,30 +983,87 @@ def main() -> int:
          for r in rows[0]], event)
     if violations:
         raise AssertionError(f"rounds contract violated: {violations}")
+    max_rounds = max(r.get("rounds", 0) for rs in rows for r in rs)
     emit("sweep", points=len(grid), workloads=len(workloads),
          horizon_days=big / DAY, kernel_launches=launches,
          wall_s=sweep_s, plain_wall_s=plain_s, event_wall_s=event_s,
-         max_rounds=max(r.get("rounds", 0) for rs in rows for r in rs),
+         max_rounds=max_rounds,
          contract=CONTRACTS["rounds"].__dict__, rows_nasa=rows[0])
 
-    # --- headline queries
+    # --- the coalesced sweep through the kernel
+    coal_opts = ScanOptions(coalesce=COALESCE)
+    zero_counts()
     t0 = time.time()
-    hl = headline_queries(device=device)
+    rows_c = run_sweep_workloads(grid, workloads, big, mode="rounds",
+                                 device=device, scan_options=coal_opts)
     torch.cuda.synchronize()
-    headline_s = time.time() - t0
+    coal_s = time.time() - t0
+    counts = read_counts()
+    launches_c = counts["round_step"]
+    f32_c = [r for r in runs if r["dtype"] == "float32" and r["batch"] > 1]
+    if launches_c != sum(r["chunks"] for r in f32_c) or any(
+            v for k, v in counts.items() if k != "round_step"):
+        raise AssertionError(f"the coalesced sweep's launches: {counts}, "
+                             f"the chunk-by-chunk check "
+                             f"{sum(r['chunks'] for r in f32_c)}")
+    for w in range(len(workloads)):
+        for i, (a, b) in enumerate(zip(rows[w], rows_c[w])):
+            if a["system_kind"] in ("fb", "flb_nub") and \
+                    a["completed_jobs"] != b["completed_jobs"]:
+                raise AssertionError(
+                    f"coalesced sweep workload {w} row {i}: completed "
+                    f"{b['completed_jobs']} vs {a['completed_jobs']}")
+    violations = check_fidelity(
+        [r if r["system_kind"] in ("fb", "flb_nub") else None
+         for r in rows_c[0]], event)
+    if violations:
+        raise AssertionError(f"coalesced rounds contract violated: "
+                             f"{violations}")
+    # Both walls again, in the other order (coalesced first).
+    again = {}
+    for name, opts in (("coalesced", coal_opts),
+                       ("uncoalesced", ScanOptions())):
+        t0 = time.time()
+        run_sweep_workloads(grid, workloads, big, mode="rounds",
+                            device=device, scan_options=opts)
+        torch.cuda.synchronize()
+        again[name] = time.time() - t0
+    emit("sweep_coalesced", batch=COALESCE, kernel_launches=launches_c,
+         max_rounds=max(r.get("rounds", 0) for rs in rows_c for r in rs),
+         coalesced=sum(r.get("coalesced", 0) for rs in rows_c for r in rs),
+         wall_s=coal_s, wall_again_s=again["coalesced"],
+         uncoalesced={"kernel_launches": launches, "max_rounds": max_rounds,
+                      "wall_s": sweep_s,
+                      "wall_again_s": again["uncoalesced"]},
+         rows_nasa=rows_c[0])
+
+    # --- headline queries, coalescing off and on
     ref = json.loads((ROOT / "results" / "BENCH_capacity.json"
                       ).read_text())["headline"]
-    for part, key in (("private", "min_fb_capacity"),
-                      ("private", "dcs_size"), ("public", "flb_peak"),
-                      ("public", "ec2_peak")):
-        if hl[part][key] != ref[part][key]:
-            raise AssertionError(f"headline {key}: {hl[part][key]} != "
-                                 f"{ref[part][key]}")
-    gate = HEADLINE_CONTRACT.check(hl["private"]["config_reduction"],
-                                   hl["public"]["peak_reduction"])
-    if gate or not hl["gate"]["ok"]:
-        raise AssertionError(f"HEADLINE_CONTRACT: {gate}")
-    emit("headline", wall_s=headline_s, **hl)
+    walls = {}
+    for phase, opts in (("headline", ScanOptions()),
+                        ("headline_coalesced", coal_opts)):
+        zero_counts()
+        t0 = time.time()
+        hl = headline_queries(scan_options=opts, device=device)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        hl_launches = read_counts()["round_step"]
+        for part, key in (("private", "min_fb_capacity"),
+                          ("private", "dcs_size"), ("public", "flb_peak"),
+                          ("public", "ec2_peak")):
+            if hl[part][key] != ref[part][key]:
+                raise AssertionError(f"{phase} {key}: {hl[part][key]} != "
+                                     f"{ref[part][key]}")
+        gate = HEADLINE_CONTRACT.check(hl["private"]["config_reduction"],
+                                       hl["public"]["peak_reduction"])
+        if gate or not hl["gate"]["ok"]:
+            raise AssertionError(f"{phase} HEADLINE_CONTRACT: {gate}")
+        if hl_launches == 0:
+            raise AssertionError(f"{phase} ran no round_step launch")
+        walls[phase] = wall_s
+        emit(phase, wall_s=wall_s, headline_wall_s=walls["headline"],
+             round_step_launches=hl_launches, **hl)
 
     # --- the serving slice at gemma2-2b's full width
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1025,8 +1106,9 @@ def main() -> int:
     # --- the kernel table line
     # round_step: times and bounds at the main path's shapes, the float32
     # two-week packs of both traces and policies, weighted by launches.
-    def per_launch(key):
-        return sum(r[key] * r["chunks"] for r in f32) / launches
+    def per_launch(key, cases=f32):
+        return (sum(r[key] * r["chunks"] for r in cases)
+                / sum(r["chunks"] for r in cases))
 
     bound_ms = per_launch("bound_ms")
     line = {"kernels": [{
@@ -1044,6 +1126,13 @@ def main() -> int:
             r["chunks"] for r in f32 if r["bound_by"] == "bytes")
         >= launches else "operations",
         "library_ms": None,
+        # the coalesced sweep (batch 8): its launches, and the same
+        # launch-weighted times over its float32 chunks
+        "coalesced_launches": launches_c,
+        "coalesced_ms": per_launch("kernel_ms_per_launch", f32_c),
+        "coalesced_plain_ms": per_launch("plain_ms_per_chunk", f32_c),
+        "coalesced_bound_ms": per_launch("bound_ms", f32_c),
+        "coalesced_max_abs_err": max(r["max_abs_err"] for r in f32_c),
     }]}
     # flash_attention: the serve path's float32 prefill, at the ragged
     # S = 4600, the mean of its local (window 4096) and global layers.
@@ -1090,8 +1179,11 @@ def main() -> int:
         "library_ms": None,
     })
     emit("chain", chain_ms=per_launch("chain_ms"), bound_ms=bound_ms,
+         coalesced_chain_ms=per_launch("chain_ms", f32_c),
+         coalesced_bound_ms=per_launch("bound_ms", f32_c),
          note="serial chain of block barriers per launch x measured "
-              "barrier cost, beside the bytes/operations bound")
+              "barrier cost, beside the bytes/operations bound; "
+              "coalesced: every round with a queue, an upper bound")
     emit("done", wall_s=time.time() - t_all)
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -12,12 +12,26 @@
 // out, in the layout of repro_torch.kernels.round_step (sc: 20 scalars,
 // win: 7 x K rows).
 //
+// With `batch` > 1 each round also runs the contended-stretch coalescer
+// (repro_torch.sim.rounds._coalesce): while a queue existed at the round
+// start, up to `batch` completion instants inside the horizon, and the
+// queue admissions they allow, are replayed in the one round, which ends
+// at the first instant where the closed form could diverge from first-fit.
+//
 // What bounds it: neither bytes nor operations. A lane moves a few KB and
 // does a few thousand flops per round; the time is the serial chain of
 // block-wide reductions and scans a round needs (each waits on the one
 // before it: the horizon mins, the fresh-submit sum, the completion folds,
 // the class sums and threshold suffix scan, two first-fit passes of a scan
-// plus a sum each, the post-action queue sums), i.e. latency.
+// plus a sum each, the post-action queue sums), i.e. latency. The
+// coalescer adds 2 * batch + 7 barriers to a round whose lane has a queue
+// (batch + 1 reductions for the instants and the frontier, one scan for
+// the admission prefix, one barrier for the started-by buckets, one
+// reduction for the divergence instant) and drops the horizon's three
+// reductions (6 barriers), which that lane does not need; a lane without
+// a queue skips the coalescer whole and runs one paired reduction for
+// its horizon instead of three (repro_torch.kernels.round_step.
+// chain_barriers counts the first case, an upper bound).
 //
 // What the design does about it:
 //   * one thread block per lane, one thread per window slot (K = 192 FB,
@@ -28,19 +42,25 @@
 //     registers too, replicated in every thread: each reduction ends with
 //     every thread holding the same result, so no broadcast is needed;
 //   * reductions are warp shuffles plus one pass over at most 32 warp
-//     partials; the 16 kill-class sums are shared-memory atomics, exact
-//     because every size is an integer-valued float.
+//     partials; the 16 kill-class sums and the coalescer's started-by
+//     buckets are shared-memory atomics, exact because every size is an
+//     integer-valued float;
+//   * `engaged` (active lane with a queue) is a loop scalar, the same in
+//     every thread of a block, so a block branches around the coalescer
+//     and its barriers without divergence; the coalescer is a template
+//     flag, and the batch == 1 instantiation has none of it.
 // Running the whole outer loop inside one launch (instead of one launch per
 // outer step) is the next step and is not done here.
 //
 // Exactness: every value a decision reads is a sum of integer-valued floats
 // (sizes, counts, flags), exact in any order, and every time is one IEEE
 // add, so the state equals the plain PyTorch version bit for bit except the
-// three order-dependent integrals (turn_sum, exec_sum, node_seconds). Build
+// three order-dependent integrals (turn_sum, exec_sum, node_seconds). The
+// coalescer's freed and started masses, admission needs and free-capacity
+// estimates are such sums too, and each start or end time one add. Build
 // without fast math and with -fmad=false, so no product is fused into a sum.
 //
-// Scope: the engine's default batch == 1 (the contended-stretch coalescer
-// runs on the plain version); no fault tables.
+// Scope: any batch <= K; no fault tables.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,7 +78,7 @@ constexpr int SC_SIZE = SC_ACC0 + N_ACC;
 constexpr int WIN_ROWS = 7;
 constexpr int KILL_CLASSES = 16;
 constexpr int MAX_WARPS = 32;
-constexpr int MAX_RED = 4;          // values reduced together at most
+constexpr int MAX_RED = 7;          // values reduced together at most
 constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T mn(T a, T b) {
@@ -122,6 +142,31 @@ __device__ __forceinline__ void block_reduce(T (&v)[M], Op op,
     for (int w = 1; w < nw; ++w) x = op(x, s.red[m * MAX_WARPS + w]);
     v[m] = x;
   }
+  __syncthreads();
+}
+
+// A sum and a min reduced together in one pass (two barriers).
+template <typename T>
+__device__ __forceinline__ void block_sum_min(T& sum, T& lo, Scratch<T>& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(FULL, sum, o);
+    lo = mn(lo, __shfl_xor_sync(FULL, lo, o));
+  }
+  if (lane == 0) {
+    s.red[warp] = sum;
+    s.red[MAX_WARPS + warp] = lo;
+  }
+  __syncthreads();
+  T a = s.red[0], b = s.red[MAX_WARPS];
+  for (int w = 1; w < nw; ++w) {
+    a += s.red[w];
+    b = mn(b, s.red[MAX_WARPS + w]);
+  }
+  sum = a;
+  lo = b;
   __syncthreads();
 }
 
@@ -218,9 +263,9 @@ __device__ __forceinline__ bool first_fit(T& free, bool queued, T sz,
   return started;
 }
 
-template <typename T, bool FB>
+template <typename T, bool FB, bool COAL>
 __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
-                             int ff_passes, double duration,
+                             int ff_passes, int batch, double duration,
                              const T* __restrict__ jobs_all,
                              const T* __restrict__ rises_all,
                              const T* __restrict__ wstab_all,
@@ -232,6 +277,11 @@ __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Scratch<T>& s = *reinterpret_cast<Scratch<T>*>(smem_raw);
   T* cmp = reinterpret_cast<T*>(smem_raw + sizeof(Scratch<T>));  // 6 x K
+  // The coalescer's per-instant values (batch each): the instants, the
+  // cumulative freed mass and the started-by buckets.
+  T* tau = cmp + 6 * K;
+  T* fcum = tau + batch;
+  T* hist = fcum + batch;
 
   const int n = blockIdx.x;
   const int i = threadIdx.x;
@@ -309,25 +359,145 @@ __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
   for (int r = 0; r < rounds; ++r) {
     const bool active = t < dur;
     // --- the next event horizon.
-    T mins[2] = {(w.valid && w.sub > t) ? w.sub : inf,
-                 w.run ? w.en : inf};
-    block_reduce<2>(mins, OpMin(), s);
     const T row_next = row_sub > t ? row_sub : inf;
-    const T next_sub = mn(mins[0], row_next);
     const T k_next = ffloor(t / L) + T(1);
     const T t_tick = k_next * L;
     T b0 = mn(t_tick, mn(row_next, dur));
     if (FB) b0 = mn(b0, rise_t[clampi(rise_i, NR)]);
-    b0 = mn(b0, has_queue ? mins[1] : inf);
-    const bool fresh = w.valid && w.sub > t && w.sub <= b0;
-    T sum_new = block_sum1(fresh ? w.sz : T(0), s);
-    T min_new[1] = {fresh ? w.sz : inf};
-    block_reduce<1>(min_new, OpMin(), s);
     T free = owned - used;
-    const bool skip_ok = !has_queue && (sum_new <= free);
-    const bool unbounded = skip_ok || (has_queue && (min_new[0] > free));
-    T b = unbounded ? b0 : mn(b0, next_sub);
-    b = active ? b : t;
+    // The coalescer's three folds (completions, turnaround, execution),
+    // summed with the completion folds below.
+    T coal[3] = {T(0), T(0), T(0)};
+    T b;
+    bool skip_ok;
+    if constexpr (!COAL) {
+      T mins[2] = {(w.valid && w.sub > t) ? w.sub : inf,
+                   w.run ? w.en : inf};
+      block_reduce<2>(mins, OpMin(), s);
+      const T next_sub = mn(mins[0], row_next);
+      b0 = mn(b0, has_queue ? mins[1] : inf);
+      const bool fresh = w.valid && w.sub > t && w.sub <= b0;
+      T sum_new = block_sum1(fresh ? w.sz : T(0), s);
+      T min_new[1] = {fresh ? w.sz : inf};
+      block_reduce<1>(min_new, OpMin(), s);
+      skip_ok = !has_queue && (sum_new <= free);
+      const bool unbounded = skip_ok || (has_queue && (min_new[0] > free));
+      b = unbounded ? b0 : mn(b0, next_sub);
+      b = active ? b : t;
+    } else {
+      // With coalescing on, completions never bound the horizon, and
+      // with a queue neither do submits: an engaged lane (active, with a
+      // queue) takes b0 as it is and needs no reduction for it.
+      const T free0 = free;
+      const bool engaged = active && has_queue;   // same in every thread
+      if (!engaged) {
+        const bool fresh = w.valid && w.sub > t && w.sub <= b0;
+        T sum_new = fresh ? w.sz : T(0);
+        T min_sub = (w.valid && w.sub > t) ? w.sub : inf;
+        block_sum_min(sum_new, min_sub, s);
+        skip_ok = !has_queue && (sum_new <= free0);
+        const bool unbounded = skip_ok || has_queue;
+        b = unbounded ? b0 : mn(b0, mn(min_sub, row_next));
+        b = active ? b : t;
+      } else {
+        skip_ok = false;
+        b = b0;
+        // --- the contended-stretch coalescer (see the header).
+        // (1) masked top-k: the next `batch` distinct completion instants
+        // inside (t, b), each with the mass it frees, then the frontier.
+        if (i < batch) hist[i] = T(0);
+        bool avail = w.run && w.en < b;
+        T v[1] = {avail ? w.en : inf};
+        block_reduce<1>(v, OpMin(), s);
+        T tau_j = v[0], cum = T(0);
+        for (int j = 0; j < batch; ++j) {
+          if (!(tau_j < inf)) {         // nothing left: the rest is empty
+            if (i == 0) {
+              for (int m = j; m < batch; ++m) {
+                tau[m] = inf;
+                fcum[m] = cum;
+              }
+            }
+            break;
+          }
+          const bool take = avail && w.en <= tau_j;
+          avail = avail && !take;
+          T freed = take ? w.sz : T(0);
+          T next = avail ? w.en : inf;
+          block_sum_min(freed, next, s);
+          cum = cum + freed;
+          if (i == 0) { tau[j] = tau_j; fcum[j] = cum; }
+          tau_j = next;
+        }
+        const T frontier = tau_j;
+        // (2) prefix-sum admission in slot (= arrival) order: a pending
+        // job starts at the first instant whose freed mass covers the
+        // pending jobs ahead of it plus itself, or at once (t or its
+        // submit) when the free capacity already does.
+        const bool pend = w.valid && !w.run && !w.done && w.sub <= b;
+        const T psz = pend ? w.sz : T(0);
+        T psz_total;
+        const T need = (block_scan(psz, psz_total, s) - psz) + w.sz - free0;
+        int idx = 0;
+        for (int j = 0; j < batch; ++j) idx += need > fcum[j] ? 1 : 0;
+        T start_at = inf;
+        if (pend && (need <= T(0) || idx < batch))
+          start_at = mx(w.sub, need <= T(0) ? t : tau[idx]);
+        // A zero-runtime job starting at the round start is left to the
+        // tail's first-fit (the divergence instant must stay > t).
+        if (w.rt <= T(0) && start_at <= t) start_at = inf;
+        // (3) divergence probes. started_by[j], the mass started at or
+        // before instant j, is a prefix sum of buckets: a start falls in
+        // the bucket of the first instant at or after it.
+        if (start_at < inf) {
+          int j0 = 0;
+          while (j0 < batch && !(start_at <= tau[j0])) ++j0;
+          if (j0 < batch) atomicAdd(&hist[j0], w.sz);
+        }
+        __syncthreads();
+        // Leapfrogs: a pending job that fits the (over-estimated) free
+        // capacity at an instant before its start, or at its arrival;
+        // min_j over fits[i, j] is the reference's column-any form.
+        T started = T(0), fprev = T(0), sprev = T(0), net_before = T(0);
+        T leap = inf;
+        for (int j = 0; j < batch; ++j) {
+          const T tj = tau[j], fj = fcum[j];
+          started = started + hist[j];
+          const T free_at = free0 + fj - started;
+          if (pend && w.sub <= tj && start_at > tj && w.sz <= free_at)
+            leap = mn(leap, tj);
+          if (tj < w.sub)
+            net_before = net_before + ((fj - fprev) - (started - sprev));
+          fprev = fj;
+          sprev = started;
+        }
+        const T free_arr = free0 + net_before;
+        if (pend && w.sub > t && start_at > w.sub && w.sz <= free_arr)
+          leap = mn(leap, w.sub);
+        // Chain events: a batch-started job ending inside the round.
+        T th[2] = {leap, start_at < inf ? start_at + w.rt : inf};
+        block_reduce<2>(th, OpMin(), s);
+        const T chain = th[1] > t ? th[1] : inf;
+        const T theta = mn(mn(th[0], chain), frontier);
+        // (4) apply everything strictly before theta.
+        const T lim = mn(theta, b);
+        const bool cmp_c = w.run && w.en < lim;
+        const bool st_c = start_at < lim;
+        if (cmp_c) {
+          coal[0] = T(1);
+          coal[1] = w.en - w.sub;
+          coal[2] = w.en - w.st;
+          w.run = false;
+          w.done = true;
+        }
+        if (st_c) {
+          w.run = true;
+          w.st = start_at;
+          w.en = start_at + w.rt;
+        }
+        b = mn(b, theta);
+      }
+    }
     // --- exact interval integration of the policy-owned share.
     acc[A_NODE_S] = acc[A_NODE_S] + alloc_prev * mx(b - t, T(0));
     // --- retroactive starts at exact submit times.
@@ -337,11 +507,25 @@ __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
     // --- exact completions.
     const bool completing = w.run && w.en <= b;
     if (completing) { w.run = false; w.done = true; }
-    T folds[4] = {completing ? T(1) : T(0),
-                  completing ? w.en - w.sub : T(0),
-                  completing ? w.en - w.st : T(0),
-                  w.run ? w.sz : T(0)};
-    block_reduce<4>(folds, OpSum(), s);
+    constexpr int NF = COAL ? 7 : 4;
+    T folds[NF];
+    folds[0] = completing ? T(1) : T(0);
+    folds[1] = completing ? w.en - w.sub : T(0);
+    folds[2] = completing ? w.en - w.st : T(0);
+    folds[3] = w.run ? w.sz : T(0);
+    if constexpr (COAL) {
+      folds[NF - 3] = coal[0];
+      folds[NF - 2] = coal[1];
+      folds[NF - 1] = coal[2];
+    }
+    block_reduce<NF>(folds, OpSum(), s);
+    if constexpr (COAL) {
+      // The coalescer's folds land first, as in the plain version.
+      acc[A_COMPLETED] = acc[A_COMPLETED] + folds[NF - 3];
+      acc[A_TURN] = acc[A_TURN] + folds[NF - 2];
+      acc[A_EXEC] = acc[A_EXEC] + folds[NF - 1];
+      acc[A_COAL] = acc[A_COAL] + folds[NF - 3];
+    }
     acc[A_COMPLETED] = acc[A_COMPLETED] + folds[0];
     acc[A_TURN] = acc[A_TURN] + folds[1];
     acc[A_EXEC] = acc[A_EXEC] + folds[2];
@@ -474,21 +658,39 @@ __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
   }
 }
 
-template <typename T, bool FB>
-cudaError_t launch(int n_lanes, int K, int Jp, int NR, int NT, int rounds,
-                   int ff_passes, double duration, const void* jobs,
-                   const void* rises, const void* wstab, const void* prm,
-                   const void* sc_in, const void* win_in, void* sc_out,
-                   void* win_out, cudaStream_t stream) {
-  const int threads = ((K + 31) / 32) * 32;
-  const size_t smem = sizeof(Scratch<T>) + 6 * (size_t)K * sizeof(T);
-  chunk_kernel<T, FB><<<n_lanes, threads, smem, stream>>>(
-      K, Jp, NR, NT, rounds, ff_passes, duration,
-      static_cast<const T*>(jobs), static_cast<const T*>(rises),
-      static_cast<const T*>(wstab), static_cast<const T*>(prm),
-      static_cast<const T*>(sc_in), static_cast<const T*>(win_in),
-      static_cast<T*>(sc_out), static_cast<T*>(win_out));
+struct LaunchArgs {
+  int n_lanes, K, Jp, NR, NT, rounds, ff_passes, batch;
+  double duration;
+  const void *jobs, *rises, *wstab, *prm, *sc_in, *win_in;
+  void *sc_out, *win_out;
+  cudaStream_t stream;
+};
+
+template <typename T, bool FB, bool COAL>
+cudaError_t launch(const LaunchArgs& a) {
+  const int threads = ((a.K + 31) / 32) * 32;
+  const size_t smem = sizeof(Scratch<T>) + 6 * (size_t)a.K * sizeof(T)
+                      + (COAL ? 3 * (size_t)a.batch * sizeof(T) : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chunk_kernel<T, FB, COAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  chunk_kernel<T, FB, COAL><<<a.n_lanes, threads, smem, a.stream>>>(
+      a.K, a.Jp, a.NR, a.NT, a.rounds, a.ff_passes, a.batch, a.duration,
+      static_cast<const T*>(a.jobs), static_cast<const T*>(a.rises),
+      static_cast<const T*>(a.wstab), static_cast<const T*>(a.prm),
+      static_cast<const T*>(a.sc_in), static_cast<const T*>(a.win_in),
+      static_cast<T*>(a.sc_out), static_cast<T*>(a.win_out));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int policy, const LaunchArgs& a) {
+  if (a.batch > 1)
+    return policy == 0 ? launch<T, true, true>(a) : launch<T, false, true>(a);
+  return policy == 0 ? launch<T, true, false>(a) : launch<T, false, false>(a);
 }
 
 // Cost probe for the serial chain: `steps` dependent block-wide sums (the
@@ -505,37 +707,24 @@ __global__ void chain_probe_kernel(int steps, T* __restrict__ out) {
 
 }  // namespace
 
-// policy: 0 = FB, 1 = FLB-NUB. Returns the cudaError_t of the launch.
+// policy: 0 = FB, 1 = FLB-NUB; batch: the coalescing batch in [1, K]
+// (1 = off). Returns the cudaError_t of the launch.
 extern "C" int round_step_chunk(int policy, int is_f64, int n_lanes, int K,
                                 int Jp, int NR, int NT, int rounds,
-                                int ff_passes, double duration,
+                                int ff_passes, int batch, double duration,
                                 const void* jobs, const void* rises,
                                 const void* wstab, const void* prm,
                                 const void* sc_in, const void* win_in,
                                 void* sc_out, void* win_out, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (K < 1 || K > 1024 || Jp < K || NR < 1 || NT < 1)
+  if (K < 1 || K > 1024 || Jp < K || NR < 1 || NT < 1 || batch < 1 ||
+      batch > K)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (is_f64) {
-    e = policy == 0
-            ? launch<double, true>(n_lanes, K, Jp, NR, NT, rounds, ff_passes,
-                                   duration, jobs, rises, wstab, prm, sc_in,
-                                   win_in, sc_out, win_out, st)
-            : launch<double, false>(n_lanes, K, Jp, NR, NT, rounds,
-                                    ff_passes, duration, jobs, rises, wstab,
-                                    prm, sc_in, win_in, sc_out, win_out, st);
-  } else {
-    e = policy == 0
-            ? launch<float, true>(n_lanes, K, Jp, NR, NT, rounds, ff_passes,
-                                  duration, jobs, rises, wstab, prm, sc_in,
-                                  win_in, sc_out, win_out, st)
-            : launch<float, false>(n_lanes, K, Jp, NR, NT, rounds, ff_passes,
-                                   duration, jobs, rises, wstab, prm, sc_in,
-                                   win_in, sc_out, win_out, st);
-  }
-  return (int)e;
+  const LaunchArgs a{n_lanes, K, Jp, NR, NT, rounds, ff_passes, batch,
+                     duration, jobs, rises, wstab, prm, sc_in, win_in,
+                     sc_out, win_out, static_cast<cudaStream_t>(stream)};
+  return (int)(is_f64 ? dispatch<double>(policy, a)
+                      : dispatch<float>(policy, a));
 }
 
 // `threads` must be a multiple of 32 in [32, 1024]; `out` holds

@@ -4,7 +4,8 @@ plain PyTorch version.
 One outer step of ``repro_torch.sim.rounds`` — stable compaction of the
 done window lanes, admission of the next job-table rows, the power-of-two
 size classes and ``compact_every`` event rounds (first-fit, §5.1 kills
-for FB, §5.2 U/V/G at ticks for FLB-NUB) — runs as ONE launch for every
+for FB, §5.2 U/V/G at ticks for FLB-NUB, and with ``spec.batch > 1`` the
+contended-stretch coalescer) — runs as ONE launch for every
 (point × trace) lane: one thread block per lane, one thread per window
 slot (``csrc/round_step.cu``). It replaces the Pallas kernel
 ``repro.kernels.round_step.chunk_step`` of the JAX package.
@@ -24,9 +25,6 @@ the two int cursors stay far below 2**24.
 tensors and counts each launch in ``chunk_step.launches``; it raises on
 CPU tensors (there is no kernel for the CPU: ``RoundsSpec.kernel``
 chooses the plain version there).
-
-The kernel covers the engine's default ``batch == 1``; the contended-
-stretch coalescer (``batch > 1``) runs on the plain version only.
 """
 
 from __future__ import annotations
@@ -163,7 +161,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.round_step_chunk
-    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_double]
+    fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     lib.round_step_error_string.argtypes = [ctypes.c_int]
@@ -214,14 +212,11 @@ def chunk_step(jobs, rises, wstab, prm, sc, win, *, policy: str,
                spec: RoundsSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused outer step for every lane: compaction + admission +
     size classes + ``spec.compact_every`` rounds, as ONE kernel launch
-    (one thread block per lane). The inputs come from
-    :func:`lane_inputs`; the tensors must lie on a CUDA device, where the
-    kernel runs or this raises."""
+    (one thread block per lane), with the contended-stretch coalescer
+    when ``spec.batch > 1``. The inputs come from :func:`lane_inputs`;
+    the tensors must lie on a CUDA device, where the kernel runs or this
+    raises."""
     _check_state(jobs, sc, win, spec)
-    if min(spec.batch, spec.window) > 1:
-        raise NotImplementedError(
-            "the CUDA round step covers batch == 1; the contended-stretch "
-            "coalescer (batch > 1) runs with kernel=\"torch\"")
     lib = _library()
     sc_out = torch.empty_like(sc)
     win_out = torch.empty_like(win)
@@ -229,7 +224,7 @@ def chunk_step(jobs, rises, wstab, prm, sc, win, *, policy: str,
     err = lib.round_step_chunk(
         0 if policy == "fb" else 1, int(sc.dtype == torch.float64),
         sc.shape[0], win.shape[-1], jobs.shape[-1], rises.shape[-1],
-        wstab.shape[-1], spec.compact_every, spec.ff_passes,
+        wstab.shape[-1], spec.compact_every, spec.ff_passes, _batch(spec),
         float(spec.duration), jobs.data_ptr(), rises.data_ptr(),
         wstab.data_ptr(), prm.data_ptr(), sc.data_ptr(), win.data_ptr(),
         sc_out.data_ptr(), win_out.data_ptr(), stream)
@@ -245,15 +240,34 @@ chunk_step.launches = 0
 
 # ------------------------------------------------- the serial chain's cost
 
+def _batch(spec: RoundsSpec) -> int:
+    """The coalescing batch the kernel runs: top-k cannot exceed the
+    window, as in the engine."""
+    return min(spec.batch, spec.window)
+
+
 def chain_barriers(policy: str, spec: RoundsSpec) -> int:
     """Block-wide barriers one launch of the kernel passes in sequence,
     counted from ``csrc/round_step.cu``: 3 for the compaction, then per
     event round 2 per block reduction or scan, 3 for the FB kill classes
     and 4 per first-fit pass (FB: 17 + 4·passes; FLB-NUB, which runs
-    first-fit twice: 14 + 8·passes). The kernel runs every round of the
-    chunk, so the count does not depend on the data."""
+    first-fit twice: 14 + 8·passes). With batch 1 the kernel runs every
+    round of the chunk the same way, so the count does not depend on the
+    data.
+
+    With coalescing on (batch k > 1), a round whose lane has a queue
+    runs the coalescer, 2·k + 7 barriers (k + 1 reductions for the
+    instants and the frontier, the admission scan, the started-by
+    buckets, the divergence reduction; fewer when the instants run out
+    before k), and skips the horizon's three reductions (6); a round
+    without a queue runs one reduction for its horizon (2). The count
+    returned is a chunk in which every round has a queue (FB: 18 + 4·
+    passes + 2·k; FLB-NUB: 15 + 8·passes + 2·k): an upper bound."""
     per_round = (17 + 4 * spec.ff_passes if policy == "fb"
                  else 14 + 8 * spec.ff_passes)
+    k = _batch(spec)
+    if k > 1:
+        per_round += 2 * k + 7 - 6
     return 3 + spec.compact_every * per_round
 
 

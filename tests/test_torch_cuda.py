@@ -4,7 +4,8 @@ Runs only where ``torch.cuda.is_available()`` (the check is made inside
 each test): there the wrappers build their ``csrc/*.cu`` sources with
 nvcc and launch them. The round step's state after every chunk must
 equal ``chunk_step_ref`` on the same CUDA tensors, exactly except the
-three time integrals (rtol 1e-5 float32, 1e-6 float64); the flash
+three time integrals (rtol 1e-5 float32, 1e-6 float64), with the
+contended-stretch coalescer off and on (batch 1 and 8); the flash
 attention and flash decode kernels must match ``kernels.ref`` (see the
 tolerances below), and a reduced model's kernel path its plain path.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
@@ -14,18 +15,56 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.jobs import Job
 from repro_torch.kernels import round_step as rsk
 from repro_torch.sim import rounds, traces
+from repro_torch.sim.scan import FBGrid
 from repro_torch.sim.sweep import ScanOptions, _pack_rounds, paper_grid
 
 DAY = 24 * 3600.0
 INTEGRALS = [rsk.SC_ACC0 + rounds.ACC_KEYS.index(k)
              for k in ("turn_sum", "exec_sum", "node_seconds")]
+COALESCED = rsk.SC_ACC0 + rounds.ACC_KEYS.index("coalesced")
 
 
+def _step_against_plain(policy, grid, pk, spec, horizon):
+    """Run the lanes chunk by chunk from the engine's startup state: at
+    every chunk the kernel and the plain version start from the same
+    state and must agree (exact except the three integrals); the plain
+    result carries on for the live lanes. Returns the per-chunk states
+    before and after."""
+    prm = rounds._rounds_prm_tree(policy, grid, 1)
+    ctx = rounds._lane_ctx(policy, prm, pk)
+    sc, win = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
+    inputs = rsk.lane_inputs(policy, ctx)
+    before = rsk.chunk_step.launches
+    exact = [i for i in range(rsk.SC_SIZE) if i not in INTEGRALS]
+    steps = []
+    while bool((sc[:, rsk.SC_T] < horizon).any()):
+        assert len(steps) < 4096, "lanes never reached the horizon"
+        got = rsk.chunk_step(*inputs, sc, win, policy=policy, spec=spec)
+        want = rsk.chunk_step_ref(*inputs, sc, win, policy=policy,
+                                  spec=spec)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), len(steps)
+        assert torch.equal(got[0][:, exact], want[0][:, exact]), len(steps)
+        torch.testing.assert_close(
+            got[0][:, INTEGRALS], want[0][:, INTEGRALS], atol=0,
+            rtol=1e-5 if sc.dtype == torch.float32 else 1e-6)
+        live = sc[:, rsk.SC_T] < horizon
+        sc_n = torch.where(live[:, None], want[0], sc)
+        win = torch.where(live[:, None, None], want[1], win)
+        steps.append((sc, sc_n))
+        sc = sc_n
+    assert rsk.chunk_step.launches - before == len(steps)
+    return steps
+
+
+@pytest.mark.parametrize("batch", [1, rounds.COALESCE_BATCH])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("policy", ["fb", "flb_nub"])
-def test_kernel_equals_plain_after_every_chunk_on_the_card(policy, dtype):
+def test_kernel_equals_plain_after_every_chunk_on_the_card(policy, dtype,
+                                                           batch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda", 0)
@@ -34,33 +73,60 @@ def test_kernel_equals_plain_after_every_chunk_on_the_card(policy, dtype):
     ws = [(t, d) for t, d in traces.worldcup98(seed=0, peak_vms=128)
           if t < horizon]
     points = [p for p in paper_grid(128) if p.system == policy]
-    opts = ScanOptions(dtype=np.float64 if dtype == torch.float64 else None)
+    opts = ScanOptions(dtype=np.float64 if dtype == torch.float64 else None,
+                       coalesce=batch)
     (_, _, fb, flb, fb_packs, flb_packs, fb_spec, flb_spec) = _pack_rounds(
         points, [(jobs, ws)], horizon, opts, dev)
     grid, pk, spec = ((fb, fb_packs[0], fb_spec) if policy == "fb"
                       else (flb, flb_packs[0], flb_spec))
-    prm = rounds._rounds_prm_tree(policy, grid, 1)
-    ctx = rounds._lane_ctx(policy, prm, pk)
-    sc, win = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
-    inputs = rsk.lane_inputs(policy, ctx)
-    before = rsk.chunk_step.launches
-    chunks = 0
-    while bool((sc[:, rsk.SC_T] < horizon).any()):
-        got = rsk.chunk_step(*inputs, sc, win, policy=policy, spec=spec)
-        want = rsk.chunk_step_ref(*inputs, sc, win, policy=policy,
-                                  spec=spec)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], want[1]), chunks
-        exact = [i for i in range(rsk.SC_SIZE) if i not in INTEGRALS]
-        assert torch.equal(got[0][:, exact], want[0][:, exact]), chunks
-        torch.testing.assert_close(
-            got[0][:, INTEGRALS], want[0][:, INTEGRALS], atol=0,
-            rtol=1e-5 if dtype == torch.float32 else 1e-6)
-        live = sc[:, rsk.SC_T] < horizon
-        sc = torch.where(live[:, None], want[0], sc)
-        win = torch.where(live[:, None, None], want[1], win)
-        chunks += 1
-    assert rsk.chunk_step.launches - before == chunks > 20
+    assert spec.batch == batch
+    steps = _step_against_plain(policy, grid, pk, spec, horizon)
+    assert len(steps) > 20
+    coalesced = steps[-1][1][:, COALESCED]
+    assert bool((coalesced > 0).any()) == (batch > 1)
+
+
+def test_coalescer_defers_at_theta_on_the_card():
+    """The reference's crafted all-contended trace (its coalescer
+    regression, tests/test_engine_differential.py), rebuilt from numpy:
+    16 nodes, 6 generations of 16 unit jobs of 1000 s all submitted at 0,
+    no WS demand, one lease longer than the horizon. One round per launch
+    (compact_every = 1), so each launch shows one round: the kernel
+    equals the plain version after each, coalesces completions, and ends
+    a coalesced round at the divergence instant (the chain end of the
+    generation it started), short of the horizon it had without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    C, gens, rt = 16, 6, 1000.0
+    n = C * gens
+    submit, size, runtime = np.zeros(n), np.ones(n, int), np.full(n, rt)
+    jobs = [Job(i, float(s), size=int(z), runtime=float(r))
+            for i, (s, z, r) in enumerate(zip(submit, size, runtime))]
+    duration = gens * rt + 500.0
+    lease = 10 * duration
+    for dtype in (torch.float32, torch.float64):
+        f = np.float64 if dtype == torch.float64 else np.float32
+        spec = rounds.RoundsSpec(duration=duration, max_rounds=64,
+                                 window=128, compact_every=1,
+                                 batch=rounds.COALESCE_BATCH)
+        pk = rounds.pack_event_workloads([(jobs, [(0.0, 0)])], duration,
+                                         spec.window, "fb", [lease],
+                                         [float(C)], dtype=f, device=dev)
+        grid = FBGrid(capacity=torch.tensor([float(C)], dtype=dtype,
+                                            device=dev),
+                      lease=torch.tensor([lease], dtype=dtype, device=dev))
+        steps = _step_against_plain("fb", grid, pk, spec, duration)
+        final = steps[-1][1]
+        assert int(final[0, rsk.SC_ACC0]) == n          # all completed
+        assert float(final[0, COALESCED]) > 0
+        # A round that coalesced completions and ended at a chain end
+        # (a multiple of rt) before the horizon.
+        cut = [float(a[0, rsk.SC_T]) for b, a in steps
+               if float(a[0, COALESCED]) > float(b[0, COALESCED])
+               and float(a[0, rsk.SC_T]) < duration]
+        assert cut and all(t % rt == 0 for t in cut), cut
+        assert len(steps) <= -(-n // rounds.COALESCE_BATCH)
 
 
 # ------------------------------------------- attention kernels on the card

@@ -44,12 +44,16 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    256, softcap 50): flash attention at S 8192 and 4600,
                    flash decode at batch 8 over an 8192 cache at four
                    positions; window 4096 and none, float32 and bfloat16,
-                   plus one case each whose scores reach the softcap;
-                   each against its plain version on the same inputs
-                   (elementwise atol + rtol, stated per dtype), with its
-                   device time (CUDA events around calls queued behind a
-                   spin), the plain version's, one SDPA call's (softcap
-                   off) and the bound
+                   plus one case each whose scores reach the softcap, and
+                   bfloat16 attention at the generate phase's prefill
+                   shape (batch 8, S 4600); each against its plain
+                   version on the same inputs (elementwise atol + rtol,
+                   stated per dtype), with its device time (CUDA events
+                   around calls queued behind a spin), the achieved
+                   TFLOP/s (attention) or GB/s (decode) and the share of
+                   the bound, the plain version's time, one SDPA call's
+                   (softcap off; with a window an explicit mask) and the
+                   bound
   serve            gemma2-2b at full width, float32: AutoscaledService of
                    Replicas sharing one Model, 8 requests of 500-6000
                    prompt tokens; all complete, 26 flash-attention
@@ -60,7 +64,9 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    32 decode steps at one position through flash decode
                    (26 launches a step), teacher-forced against the
                    plain route (logits within 0.25, argmax agreement at
-                   least 0.9); a profile of the prefill and of one step
+                   least 0.9); a profile of the prefill and of one step,
+                   with the flash-attention (prefill) and flash-decode
+                   (step) device ms as fields
   ssd_kernel_vs_plain
                    mamba2-130m's SSD scan at full width (24 heads, P 64,
                    N 128, chunk 128): batch 1 and 8 at L 4096, L 2048
@@ -83,8 +89,10 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    0.9)
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba), times,
-                   bound; round_step also with the coalesced sweep's
-                   launches and time per launch
+                   bound; attention and decode one row per dtype on its
+                   path (flash_attention_f32: serve, flash_attention_bf16
+                   and flash_decode_bf16: generate); round_step also with
+                   the coalesced sweep's launches and time per launch
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -485,10 +493,11 @@ def errors(got, want, atol, rtol):
                 tol={"atol": atol, "rtol": rtol})
 
 
-def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0):
-    """flash_attention_bkv vs flash_attention_ref at b 1, causal; q
-    scaled by ``q_scale``."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0, batch=1):
+    """flash_attention_bkv vs flash_attention_ref at ``batch``, causal;
+    q scaled by ``q_scale``."""
+    h, kv, hd = (batch * cfg.n_heads, batch * cfg.n_kv_heads,
+                 cfg.head_dim_)
     q, k, v = ((torch.randn(n, s, hd, generator=gen, device=device) * f)
                .to(dtype) for n, f in ((h, q_scale), (kv, 1.0), (kv, 1.0)))
     cap = cfg.attn_softcap
@@ -505,8 +514,10 @@ def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0):
         check["no_cap_within_tol"] = compare(got, kref.flash_attention_ref(
             q, k, v, window=window), dtype)["within_tol"]
     # library: one SDPA call, softcap off (no PyTorch call computes the
-    # softcapped function), model layout (b, heads, s, hd).
-    ql, kl, vl = q[None], k[None], v[None]
+    # softcapped function), model layout (b, heads, s, hd). With a window
+    # SDPA takes an explicit mask, which rules out its flash backend: a
+    # weaker yardstick than its is_causal time without one.
+    ql, kl, vl = (x.reshape(batch, -1, s, hd) for x in (q, k, v))
     mask = None if window is None else \
         window_mask(s, window, device)
 
@@ -520,9 +531,11 @@ def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0):
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())
     flops = 4 * hd * pairs * h
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    out = dict(seq=s, window=window, dtype=str(dtype)[6:], heads=h,
-               kv_heads=kv, head_dim=hd, softcap=cap, q_scale=q_scale,
-               **check, ms=ms, ms_device_bound=device_bound,
+    out = dict(seq=s, window=window, dtype=str(dtype)[6:], batch=batch,
+               heads=h // batch, kv_heads=kv // batch, head_dim=hd,
+               softcap=cap, q_scale=q_scale, **check, ms=ms,
+               ms_device_bound=device_bound, tflop_per_s=flops / ms / 1e9,
+               bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 2)[0],
                library_ms=queued_ms(library, 3)[0],
                library="scaled_dot_product_attention(enable_gqa=True), "
@@ -583,6 +596,7 @@ def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
                batch=DECODE_BATCH, kv_heads=kv, group=g, head_dim=hd,
                cache=DECODE_CACHE, softcap=cap, q_scale=q_scale, **check,
                ms=ms, ms_device_bound=device_bound,
+               gb_per_s=nbytes / ms / 1e6, bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 5)[0],
                library_ms=queued_ms(library, 20)[0],
                library="scaled_dot_product_attention(enable_gqa=True, "
@@ -620,12 +634,14 @@ def read_counts():
             "ssd_scan": ssk.ssd_scan_bh.launches}
 
 
-def breakdown(fn):
+def breakdown(fn, sum_of=None):
     """Where one call of ``fn`` spends its time: its host wall (host
     clock around the call and a synchronize, after a warm-up call), the
     device time of all its kernels from a ``torch.profiler`` trace of a
     second call (None when the trace holds none), the busy share
-    device / wall, and the five kernels with the most device time."""
+    device / wall, the five kernels with the most device time, and for
+    each ``key: name part`` of ``sum_of`` the device ms of the kernels
+    whose name holds that part, under ``key``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -651,7 +667,10 @@ def breakdown(fn):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if device_ms else None,
-                top_kernels_ms=top)
+                top_kernels_ms=top,
+                **{key: sum(ms for name, ms in per_kernel.items()
+                            if part in name)
+                   for key, part in (sum_of or {}).items()})
 
 
 def ssm_states(cache):
@@ -794,12 +813,14 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
     if any(counts[k] != expected.get(k, 0) for k in counts):
         raise AssertionError(f"{phase}: launches {counts}, expected "
                              f"{expected}")
-    step_profile = breakdown(lambda: model.decode(nxt[:, None], cache, pos))
+    step_profile = breakdown(lambda: model.decode(nxt[:, None], cache, pos),
+                             sum_of={"flash_decode_ms": "decode_"})
     del cache
     torch.cuda.empty_cache()
     prefill_profile = breakdown(lambda: model.prefill(
         {"tokens": toks}, model.init_cache(batch, cache_len,
-                                           dtype=torch.bfloat16)))
+                                           dtype=torch.bfloat16)),
+        sum_of={"flash_attention_ms": "flash_fwd"})
     torch.cuda.empty_cache()
     plain = model.with_impl("torch")
     cache = plain.init_cache(batch, cache_len, dtype=torch.bfloat16)
@@ -820,7 +841,11 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
                prefill_s=prefill_s, decode_s=decode_s,
                decode_ms_per_step=1e3 * decode_s / GEN_STEPS,
                tokens_per_s=batch * GEN_STEPS / decode_s,
-               launches=counts, prefill_max_abs_err=prefill_err,
+               launches=counts,
+               prefill_flash_attention_device_ms=prefill_profile[
+                   "flash_attention_ms"],
+               step_flash_decode_device_ms=step_profile["flash_decode_ms"],
+               prefill_max_abs_err=prefill_err,
                step_max_abs_err=max(errs), step_mean_abs_err=max(means),
                argmax_agreement=sum(agree) / len(agree), tol=GEN_TOL,
                min_argmax_agreement=GEN_MIN_AGREEMENT,
@@ -1075,6 +1100,9 @@ def main() -> int:
             for w in ATTN_WINDOWS for dt in dtypes]
     attn += [attn_case(cfg, ATTN_SEQS[1], ATTN_WINDOWS[0], dt, device, gen,
                        q_scale=CAP_Q_SCALE) for dt in dtypes]
+    # the generate phase's prefill shape: bfloat16, batch 8, S 4600
+    attn += [attn_case(cfg, GEN_PROMPT, w, torch.bfloat16, device, gen,
+                       batch=GEN_BATCH) for w in ATTN_WINDOWS]
     check_cases("attn_kernel_vs_plain", attn)
     dec = [decode_case(cfg, p, w, dt, device, gen) for p in DECODE_POSITIONS
            for w in ATTN_WINDOWS for dt in dtypes]
@@ -1134,18 +1162,25 @@ def main() -> int:
         "coalesced_bound_ms": per_launch("bound_ms", f32_c),
         "coalesced_max_abs_err": max(r["max_abs_err"] for r in f32_c),
     }]}
-    # flash_attention: the serve path's float32 prefill, at the ragged
-    # S = 4600, the mean of its local (window 4096) and global layers.
-    # flash_decode: the generate path's bfloat16 step at pos 4616, the
-    # mean of its local and global layers.
+    # One row per attention kernel and dtype, at its path's shape, the
+    # mean of its local (window 4096) and global layers: flash_attention
+    # float32 on serve (b 1, the ragged S 4600), bfloat16 on generate's
+    # prefill (batch 8, S 4600); flash_decode bfloat16 on generate's
+    # step (batch 8, pos 4616).
+    short = {"float32": "f32", "bfloat16": "bf16"}
     for name, cases, launches_on_path, match in (
             ("flash_attention", attn, serve["launches"]["flash_attention"],
-             dict(seq=4600, dtype="float32", q_scale=1.0)),
+             dict(seq=4600, dtype="float32", q_scale=1.0, batch=1)),
+            ("flash_attention", attn,
+             generate["launches"]["flash_attention"],
+             dict(seq=GEN_PROMPT, dtype="bfloat16", q_scale=1.0,
+                  batch=GEN_BATCH)),
             ("flash_decode", dec, generate["launches"]["flash_decode"],
              dict(pos=4616, dtype="bfloat16", q_scale=1.0))):
         sel = [c for c in cases if all(c[k] == v for k, v in match.items())]
-        line["kernels"].append({
-            "name": name,
+        same_dtype = [c for c in cases if c["dtype"] == match["dtype"]]
+        row = {
+            "name": f"{name}_{short[match['dtype']]}",
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": {"flash_attention":
@@ -1153,13 +1188,15 @@ def main() -> int:
                          "flash_decode":
                          "src/repro/kernels/flash_decode.py:98"}[name],
             "launches": launches_on_path,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in same_dtype),
             "ms": mean_of(sel, "ms"),
             "plain_ms": mean_of(sel, "plain_ms"),
             "bound_ms": mean_of(sel, "bound_ms"),
             "bound_by": sel[0]["bound_by"],
             "library_ms": mean_of(sel, "library_ms"),
-        })
+            "dtype": match["dtype"],
+        }
+        line["kernels"].append(row)
     # ssd_scan: the generate_mamba path's bfloat16 prefill (batch 8, L
     # 4096), the launches of that path.
     sel = [c for c in ssd if c["batch"] == GEN_SSM_BATCH and

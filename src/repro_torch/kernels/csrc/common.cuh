@@ -1,6 +1,7 @@
 // Pieces the attention kernels (flash_attention.cu, flash_decode.cu)
-// share: the masked-score value and the 16-byte row loads / output stores
-// for float32 and bfloat16.
+// share: the masked-score value, the 16-byte row loads / output stores
+// for float32 and bfloat16, and the exponentials of the bfloat16
+// attention and decode kernels.
 
 #pragma once
 
@@ -33,4 +34,22 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+// 2^x on the special-function unit (relative error about 2^-22).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// cap * tanh(y) from one ex2: tanh|y| = (1 - e) / (1 + e), e = exp(-2|y|).
+// Its absolute error, about 1e-7 of cap, moves a score by about 5e-6 at a
+// cap of 50: a relative 5e-6 in p, far inside the kernels' gates
+// (float32 atol 1e-4; bfloat16 atol 1e-5 + rtol 1e-2).
+__device__ __forceinline__ float cap_tanh(float y, float cap) {
+  const float e = ex2(-2.f * LOG2E * fabsf(y));
+  return copysignf(cap * __fdividef(1.f - e, 1.f + e), y);
 }

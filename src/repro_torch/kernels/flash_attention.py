@@ -1,7 +1,8 @@
 """Flash attention forward: the CUDA kernel's wrapper.
 
 ``flash_attention_bkv`` launches ``csrc/flash_attention.cu`` (built with
-nvcc for ``sm_90a`` at first use, bound with ``ctypes``) on CUDA tensors
+nvcc for ``sm_90a`` at first use, bound with ``ctypes``; float32 on the
+CUDA cores, bfloat16 on the tensor cores with wgmma) on CUDA tensors
 and counts each launch in ``flash_attention_bkv.launches``; it raises on
 CPU tensors. It replaces the JAX package's Pallas kernel
 ``repro.kernels.flash_attention.flash_attention_bkv`` and keeps its
@@ -37,7 +38,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("flash_attention", SM90A_FLAGS, _declare,
-                      headers=("common.cuh",))
+                      headers=("common.cuh", "sm90.cuh"))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

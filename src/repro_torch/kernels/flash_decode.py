@@ -1,9 +1,11 @@
 """Flash decode: the CUDA kernel's wrapper.
 
-``flash_decode_bkv`` launches ``csrc/flash_decode.cu`` (split-K over
-256-key chunks, then a combine pass; built with nvcc for ``sm_90a`` at
-first use, bound with ``ctypes``) on CUDA tensors and counts each call
-in ``flash_decode_bkv.launches``; it raises on CPU tensors. It replaces
+``flash_decode_bkv`` launches ``csrc/flash_decode.cu`` (split-K: one
+block per SM, each streaming a run of the visible cache through a ring
+of shared memory, the last block of each row group combining the runs in
+the same launch; built with nvcc for ``sm_90a`` at first use, bound with
+``ctypes``) on CUDA tensors and counts each call in
+``flash_decode_bkv.launches``; it raises on CPU tensors. It replaces
 the JAX package's Pallas kernel
 ``repro.kernels.flash_decode.flash_decode_bkv`` and keeps its layout
 contract: q (B·KV, G, hd) one token per row group, k/v (B·KV, S, hd), a
@@ -31,17 +33,40 @@ MAX_GROUP = 8
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p] * 8)
+    fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
-    lib.flash_decode_chunk_keys.argtypes = []
+    lib.flash_decode_chunk_keys.argtypes = [ctypes.c_int] * 2
     lib.flash_decode_chunk_keys.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
 
 
 LIBRARY = CudaLibrary("flash_decode", SM90A_FLAGS, _declare,
-                      headers=("common.cuh",))
+                      headers=("common.cuh", "sm90.cuh"))
+# Per (device, stream): one int32 counter per row group for the combine,
+# zero between launches (the block that combines resets its own), so
+# launches on one stream, which never overlap, share them; per device:
+# the number of SMs.
+_COUNTERS: dict = {}
+_SMS: dict = {}
+
+
+def _counters(stream: torch.cuda.Stream) -> torch.Tensor:
+    key = (stream.device, stream.cuda_stream)
+    if key not in _COUNTERS:
+        with torch.cuda.stream(stream):
+            _COUNTERS[key] = torch.zeros(65536, dtype=torch.int32,
+                                         device=stream.device)
+    return _COUNTERS[key]
+
+
+def _runs(device: torch.device, bkv: int, nchunk: int) -> int:
+    """Blocks per row group: one wave of one block per SM."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return max(1, min(nchunk, _SMS[device] // bkv))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -72,7 +97,7 @@ def flash_decode_bkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (BKV, G, hd); k/v: (BKV, S, hd); pos: the current absolute
     position (cache write index), an int or a 0-d int32 tensor on q's
     device, which the kernel reads on the device (no host sync).
-    Returns (BKV, G, hd) in q's dtype."""
+    Returns (BKV, G, hd) in q's dtype; zeros where no key is visible."""
     _check(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window {window} must be positive")
@@ -86,19 +111,21 @@ def flash_decode_bkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = LIBRARY.get()
     bkv, g, hd = q.shape
     s = k.shape[1]
-    nchunk = -(-s // lib.flash_decode_chunk_keys())
-    part_acc = torch.empty(bkv, nchunk, g, hd, dtype=torch.float32,
+    nb = _runs(q.device, bkv,
+               -(-s // lib.flash_decode_chunk_keys(DTYPE_CODES[k.dtype], hd)))
+    part_acc = torch.empty(bkv, nb, g, hd, dtype=torch.float32,
                            device=q.device)
-    part_ml = torch.empty(bkv, nchunk, g, 2, dtype=torch.float32,
+    part_ml = torch.empty(bkv, nb, g, 2, dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
     err = lib.flash_decode_fwd(
         DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype], bkv, g, s, hd,
-        0 if window is None else int(window),
+        0 if window is None else int(window), nb,
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _counters(stream).data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError("flash_decode kernel launch failed: "
                            + lib.flash_decode_error_string(err).decode())

@@ -150,6 +150,12 @@ ATTN_CASES = [
     (9, 3, 256, 64, None, None), (4, 2, 320, 64, 64, 50.0),
     (4, 2, 200, 256, 64, 50.0), (8, 4, 80, 16, 64, 50.0),
     (8, 4, 4600, 256, 4096, 50.0),      # gemma2-2b, ragged S
+    # every head dim and G 1, 2, 4, 8 through the bfloat16 tensor-core
+    # kernel: ragged S, windows below one 64-key tile, Sq < 64 (the
+    # q_offset tail below)
+    (16, 4, 300, 128, 40, 50.0), (8, 1, 130, 32, None, None),
+    (4, 4, 70, 16, 20, None), (32, 4, 200, 64, 9, 30.0),
+    (8, 2, 1000, 256, None, 50.0),
 ]
 DECODE_CASES = [
     # (bkv, g, S, hd, pos, window, softcap)
@@ -157,6 +163,11 @@ DECODE_CASES = [
     (4, 2, 1100, 32, 1099, 512, 30.0), (4, 4, 1100, 256, 1050, None, None),
     (4, 2, 88, 16, 80, 64, 50.0), (6, 3, 40, 64, 23, None, None),
     (32, 2, 8192, 256, 6000, 4096, 50.0),   # gemma2-2b, batch 8
+    # pos 0; the last key of a chunk (64 keys at hd 256 in bfloat16, 32
+    # in float32) and the first of the next; G 8
+    (4, 2, 1024, 256, 0, None, 50.0), (4, 2, 1024, 256, 127, None, None),
+    (4, 2, 1024, 256, 128, 64, 50.0), (3, 8, 700, 128, 511, 300, 30.0),
+    (2, 8, 300, 64, 299, None, 50.0),
 ]
 
 
@@ -191,6 +202,85 @@ def test_flash_attention_kernel_equals_plain_on_the_card(bh, bkv, s, hd,
                                window=window, softcap=cap, q_offset=s // 2)
     torch.testing.assert_close(tail.float(), want[:, s // 2:].float(),
                                atol=atol, rtol=rtol)
+
+
+# Non-causal attention: (bh, bkv, sq, skv, hd, window, softcap, q_offset);
+# a key is visible iff it lies in the window (no diagonal), Sq < 64 at an
+# offset too.
+FULL_CASES = [
+    (8, 2, 200, 200, 256, None, 50.0, 0), (4, 4, 37, 300, 64, 48, None, 250),
+    (8, 1, 129, 129, 128, 30, 30.0, 0), (4, 2, 60, 60, 32, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bkv,sq,skv,hd,window,cap,q_offset", FULL_CASES)
+def test_flash_attention_noncausal_kernel_equals_plain_on_the_card(
+        bh, bkv, sq, skv, hd, window, cap, q_offset, dtype):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bkv
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(bh, sq, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(bkv, skv, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=False, window=window, softcap=cap, q_offset=q_offset)
+    got = flash_attention_bkv(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_flash_decode_combine_leaves_its_counters_at_zero_on_the_card():
+    """The last block of each row group combines the runs and resets its
+    counter, so launch after launch on one stream, and on a second
+    stream with counters of its own, gives the plain version's result."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_decode as fdk
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(16, 2, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(16, 2048, 256, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    side = torch.cuda.Stream(dev)
+    for stream in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(stream):
+            for pos in (0, 1000, 2047):
+                at = torch.tensor(pos, dtype=torch.int32, device=dev)
+                got = fdk.flash_decode_bkv(q, k, v, at, window=1500,
+                                           softcap=50.0)
+                want = ref.flash_decode_ref(q, k, v, at, window=1500,
+                                            softcap=50.0)
+                stream.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=atol, rtol=rtol)
+        assert int(fdk._counters(stream).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("pos,window", [(-1, None), (-5, 64), (1087, 64),
+                                        (5000, 64)])
+def test_flash_decode_with_no_visible_key_writes_zeros_on_the_card(pos,
+                                                                    window):
+    """A position that leaves no key visible (before the cache, or every
+    key left of the window) gives zeros, not the output buffer's old
+    contents; the counters stay at zero."""
+    from repro_torch.kernels import flash_decode as fdk
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(4, 2, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(4, 1024, 256, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    # leave NaNs in the blocks the allocator hands out next
+    junk = [q.new_full(q.shape, float("nan")) for _ in range(8)]
+    del junk
+    at = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = fdk.flash_decode_bkv(q, k, v, at, window=window, softcap=50.0)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+    assert int(fdk._counters(torch.cuda.current_stream(dev)).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),

@@ -16,26 +16,36 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    and float64 over a two-day slice; exact except the
                    three time integrals. First with coalescing off (batch
                    1), then with the contended-stretch coalescer on
-                   (batch 8), where every pack must coalesce. Each line
-                   carries the kernel's (CUDA events, calls queued behind
-                   a spin) and the plain version's times at the middle
-                   chunk, the bound and the kernel's serial-chain time
+                   (batch 8), where every pack must coalesce. Then the
+                   engine's one-launch run of the same lanes
+                   (round_step.run_rounds) against the per-chunk kernel
+                   path: final states equal bit for bit, integrals too,
+                   and each lane's outer steps equal. Each line carries
+                   the one-step kernel's (CUDA events, calls queued
+                   behind a spin) and the plain version's times at the
+                   middle chunk, its bound and serial-chain time, and the
+                   run's device time, bound and plain host-loop time
   sweep            run_sweep_workloads over paper_grid(128) on both
-                   traces (two weeks, mode="rounds") through the kernel;
-                   rows equal the plain version's on the card; the NASA
-                   FB / FLB-NUB rows inside CONTRACTS["rounds"] against
-                   the event engine
+                   traces (two weeks, mode="rounds") through the kernel:
+                   one launch per trace and policy, whose outer steps
+                   equal the chunk-by-chunk check's; rows equal the plain
+                   version's on the card; the NASA FB / FLB-NUB rows
+                   inside CONTRACTS["rounds"] against the event engine;
+                   the wall split into pack, startup and kernel (a call
+                   of its own, each stage synchronized)
   sweep_coalesced  the same sweep with ScanOptions(coalesce=8) through
-                   the kernel: launches equal the coalesced chunk-by-chunk
-                   check's, completed jobs equal the uncoalesced rows',
-                   the NASA rows inside CONTRACTS["rounds"] against the
-                   same event rows; launches, max rounds and wall beside
-                   the uncoalesced sweep's (both walls timed again after,
-                   in the other order)
+                   the kernel: launches and outer steps as the coalesced
+                   chunk-by-chunk check's, completed jobs equal the
+                   uncoalesced rows', the NASA rows inside
+                   CONTRACTS["rounds"] against the same event rows;
+                   launches, outer steps, max rounds, wall and its split
+                   beside the uncoalesced sweep's (both walls timed again
+                   after, in the other order)
   headline         headline_queries() on the card: C = 135, DCS 256,
                    FLB-NUB peak 660, EC2 peak 1075
                    (results/BENCH_capacity.json) and the
-                   HEADLINE_CONTRACT gate
+                   HEADLINE_CONTRACT gate; launches, outer steps and the
+                   wall's split
   headline_coalesced
                    the same queries with ScanOptions(coalesce=8): the
                    same four answers and gate, its wall beside headline's
@@ -51,9 +61,10 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    stated per dtype), with its device time (CUDA events
                    around calls queued behind a spin), the achieved
                    TFLOP/s (attention) or GB/s (decode) and the share of
-                   the bound, the plain version's time, one SDPA call's
-                   (softcap off; with a window an explicit mask) and the
-                   bound
+                   the bound (float32 attention: of the 3 x TF32
+                   tensor-core bound and of the CUDA cores'), the plain
+                   version's time, one SDPA call's (softcap off; with a
+                   window an explicit mask) and the bound
   serve            gemma2-2b at full width, float32: AutoscaledService of
                    Replicas sharing one Model, 8 requests of 500-6000
                    prompt tokens; all complete, 26 flash-attention
@@ -91,8 +102,10 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    path (sweep, serve, generate, generate_mamba), times,
                    bound; attention and decode one row per dtype on its
                    path (flash_attention_f32: serve, flash_attention_bf16
-                   and flash_decode_bf16: generate); round_step also with
-                   the coalesced sweep's launches and time per launch
+                   and flash_decode_bf16: generate); round_step per
+                   one-launch run of the sweep, with its outer steps, the
+                   one-step entry's time per launch and the same for the
+                   coalesced sweep
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -127,6 +140,7 @@ from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.sim import rounds as roundslib  # noqa: E402
+from repro_torch.sim import sweep as sweeplib  # noqa: E402
 from repro_torch.sim import traces  # noqa: E402
 from repro_torch.sim.capacity import headline_queries  # noqa: E402
 from repro_torch.sim.contracts import (CONTRACTS,  # noqa: E402
@@ -198,6 +212,25 @@ class OpCount(TorchDispatchMode):
         elif name in ELEMENTWISE_OPS:
             self.ops += out.numel()
         return out
+
+
+def run_bound(policy, inputs, sc0, win0, sc_end, spec, lane_rounds, ops):
+    """Least time a one-launch run could take: the larger of its bytes
+    over HBM bandwidth and its operations over the dtype's peak rate.
+    Bytes: the state in and out once, the policy scalars, the job rows
+    the run admitted (each read once) and the table entries its
+    ``lane_rounds`` active event rounds read. Operations: ``ops``, the
+    plain version's count per active lane-round (``launch_bound``) times
+    the run's active lane-rounds. Returns ``(ms, bound_by)``."""
+    e = sc0.element_size()
+    K = win0.shape[-1]
+    admitted = int((sc_end[:, rsk.SC_NEXT_ROW] - K).clamp_min(0).sum())
+    nbytes = e * (2 * sc0.numel() + 2 * win0.numel() + inputs[3].numel()
+                  + 3 * admitted + TABLE_READS_PER_ROUND[policy] * lane_rounds)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops * lane_rounds / PEAK_OPS_PER_S[sc0.dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def launch_bound(policy, inputs, sc, win, spec, lane_rounds):
@@ -320,8 +353,9 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
     inputs = rsk.lane_inputs(policy, ctx)
     outer_max = -(-spec.max_rounds // spec.compact_every)
     dur = torch.tensor(spec.duration, dtype=sc.dtype, device=sc.device)
+    sc0, win0 = sc, win
     states, rounds_run = [], []
-    max_err = 0.0
+    max_err, plain_run_s = 0.0, 0.0
     label = f"{policy} {trace} {str(sc.dtype)[6:]} batch {spec.batch}"
     for i in range(outer_max):
         live = sc[:, rsk.SC_T] < dur
@@ -329,14 +363,51 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
             break
         states.append((sc, win))
         got = rsk.chunk_step(*inputs, sc, win, policy=policy, spec=spec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = rsk.chunk_step_ref(*inputs, sc, win, policy=policy,
                                   spec=spec)
+        torch.cuda.synchronize()
+        plain_run_s += time.perf_counter() - t0
         max_err = max(max_err, compare_states(got, want, sc.dtype,
                                               f"{label} chunk {i}"))
         sc_n, win_n = want
         rounds_run.append(int((sc_n[:, ROUNDS_SC] - sc[:, ROUNDS_SC]).sum()))
         sc = torch.where(live[:, None], sc_n, sc)
         win = torch.where(live[:, None, None], win_n, win)
+    lane_rounds = sum(rounds_run)
+    sc_plain, win_plain = sc, win
+    # The engine's path: the whole loop in one launch, from the same
+    # startup state, against the per-chunk kernel path (the kernel's own
+    # state carried, lanes frozen as the engine freezes them): equal bit
+    # for bit, integrals too, with the same step count per lane.
+    sc, win = sc0, win0
+    steps = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
+    while True:
+        live = (steps < outer_max) & (sc[:, rsk.SC_T] < dur)
+        if not bool(live.any()):
+            break
+        sc_n, win_n = rsk.chunk_step(*inputs, sc, win, policy=policy,
+                                     spec=spec)
+        sc = torch.where(live[:, None], sc_n, sc)
+        win = torch.where(live[:, None, None], win_n, win)
+        steps = steps + live.to(torch.int32)
+
+    def run():
+        return rsk.run_rounds(*inputs, sc0, win0, policy=policy, spec=spec,
+                              outer_max=outer_max)
+
+    sc_r, win_r, steps_r = run()
+    if not (torch.equal(sc_r, sc) and torch.equal(win_r, win)
+            and torch.equal(steps_r, steps)):
+        raise AssertionError(f"{label}: the one-launch run differs from the "
+                             f"per-chunk kernel path")
+    if int(steps.max()) != len(states):
+        raise AssertionError(f"{label}: {int(steps.max())} outer steps, "
+                             f"{len(states)} chunks")
+    compare_states((sc_r, win_r), (sc_plain, win_plain), sc.dtype,
+                   f"{label} run vs plain")
+    run_ms, run_device_bound = queued_ms(run, 3)
     mid = len(states) // 2
     mid_sc, mid_win = states[mid]
 
@@ -356,6 +427,10 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
     plain_ms, plain_host_ms = time_calls(plain, 5)
     bound_ms, bound_by, nbytes, ops = launch_bound(
         policy, inputs, mid_sc, mid_win, spec, rounds_run[mid])
+    ops_per_lane_round = ops / max(rounds_run[mid], 1)
+    run_bound_ms, run_bound_by = run_bound(policy, inputs, sc0, win0, sc_r,
+                                           spec, lane_rounds,
+                                           ops_per_lane_round)
     barriers = rsk.chain_barriers(policy, spec)
     threads = -(-win.shape[-1] // 32) * 32
     b_us = barrier_us(win.shape[0], threads, sc.dtype)
@@ -363,14 +438,19 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
                 batch=spec.batch, coalesced=float(sc[:, COALESCED_SC].sum()),
                 horizon_days=horizon / DAY, lanes=int(sc.shape[0]),
                 window=int(win.shape[-1]), job_table=int(inputs[0].shape[-1]),
-                chunks=len(states), lane_rounds=sum(rounds_run),
+                chunks=len(states), lane_rounds=lane_rounds,
                 kernel_ms_per_launch=kernel_ms, ms_device_bound=device_bound,
                 kernel_host_ms=kernel_host_ms, plain_ms_per_chunk=plain_ms,
                 plain_host_ms=plain_host_ms, max_abs_err=max_err,
                 mid_chunk=mid, mid_lane_rounds=rounds_run[mid],
                 bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
                 bound_ops=ops, chain_barriers=barriers, barrier_us=b_us,
-                chain_ms=barriers * b_us / 1e3)
+                chain_ms=barriers * b_us / 1e3,
+                run_equals_chunks=True, run_ms=run_ms,
+                run_ms_device_bound=run_device_bound,
+                run_ms_per_step=run_ms / len(states),
+                plain_run_ms=1e3 * plain_run_s, run_bound_ms=run_bound_ms,
+                run_bound_by=run_bound_by)
 
 
 def rows_equal(a, b, rtol, label):
@@ -406,10 +486,16 @@ KERNEL_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 1e-2)}
 # it. The plain version without the cap must fail the tolerance there,
 # so a kernel that skipped the cap would too.
 CAP_Q_SCALE = 40.0
-# Peak rates for the bound (H100 SXM data sheet, 700 W): the kernels'
-# float32 arithmetic runs on the CUDA cores (67 TFLOP/s), bfloat16
-# against the dense tensor-core rate (989 TFLOP/s).
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Peak rates for the bound (H100 SXM data sheet, 700 W). Attention runs
+# on the tensor cores: bfloat16 at the dense rate (989 TFLOP/s), float32
+# as three TF32 products per float32 product at the dense TF32 rate
+# (495 TFLOP/s), a third of that in counted work; its cases also report
+# the CUDA cores' float32 rate (67 TFLOP/s), the bound of the first
+# port's kernel. Decode and the SSD scan compute float32 on the CUDA
+# cores.
+CUDA_CORE_FLOPS = 67e12
+ATTN_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+CORE_PEAK_FLOPS = {torch.float32: CUDA_CORE_FLOPS, torch.bfloat16: 989e12}
 ATTN_SEQS = (8192, 4600)          # 4600: ragged (not a multiple of 64)
 ATTN_WINDOWS = (4096, None)       # gemma2's local and global layers
 DECODE_BATCH, DECODE_CACHE = 8, 8192
@@ -469,8 +555,8 @@ def visible_pairs(s, window):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def bound(nbytes, flops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound(nbytes, flops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -530,7 +616,11 @@ def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0, batch=1):
     pairs = visible_pairs(s, window)
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())
     flops = 4 * hd * pairs * h
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, ATTN_PEAK_FLOPS[dtype])
+    if dtype == torch.float32:
+        core_ms = 1e3 * flops / CUDA_CORE_FLOPS
+        check.update(cuda_core_bound_ms=core_ms,
+                     cuda_core_bound_fraction=core_ms / ms)
     out = dict(seq=s, window=window, dtype=str(dtype)[6:], batch=batch,
                heads=h // batch, kv_heads=kv // batch, head_dim=hd,
                softcap=cap, q_scale=q_scale, **check, ms=ms,
@@ -591,7 +681,7 @@ def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
     nbytes = k.element_size() * 2 * bkv * n_vis * hd \
         + 2 * q.element_size() * q.numel()
     flops = 4 * hd * n_vis * bkv * g
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, CORE_PEAK_FLOPS[dtype])
     out = dict(pos=pos, window=window, dtype=str(dtype)[6:],
                batch=DECODE_BATCH, kv_heads=kv, group=g, head_dim=hd,
                cache=DECODE_CACHE, softcap=cap, q_scale=q_scale, **check,
@@ -621,6 +711,8 @@ def check_cases(phase, cases):
 
 
 def zero_counts():
+    rsk.run_rounds.launches = 0
+    rsk.zero_outer_steps()
     rsk.chunk_step.launches = 0
     fak.flash_attention_bkv.launches = 0
     fdk.flash_decode_bkv.launches = 0
@@ -628,10 +720,65 @@ def zero_counts():
 
 
 def read_counts():
-    return {"round_step": rsk.chunk_step.launches,
+    """Launches of each kernel since ``zero_counts``: ``round_step`` the
+    engine's one-launch runs, ``round_step_chunk`` the one-step entry."""
+    return {"round_step": rsk.run_rounds.launches,
+            "round_step_chunk": rsk.chunk_step.launches,
             "flash_attention": fak.flash_attention_bkv.launches,
             "flash_decode": fdk.flash_decode_bkv.launches,
             "ssd_scan": ssk.ssd_scan_bh.launches}
+
+
+# The stages of a rounds sweep that wall_split times: the host pack of
+# the traces into tensors on the card, the lanes' startup (their tables,
+# the kernel's stacked inputs and the t = 0 round) and the kernel.
+SPLIT_STAGES = (("pack", sweeplib, "_pack_rounds"),
+                ("startup", roundslib, "_lane_ctx"),
+                ("startup", roundslib, "_startup"),
+                ("startup", rsk, "lane_inputs"),
+                ("kernel", rsk, "run_rounds"))
+
+
+def wall_split(fn):
+    """Where one call of ``fn`` (a sweep or the headline queries) spends
+    its wall: each stage of ``SPLIT_STAGES`` is wrapped with a
+    synchronize on both sides and its host wall summed; ``other_s`` is
+    the rest (DCS / EC2 rows, row assembly, copies to the host). The
+    synchronizes take away any overlap of host and device, so this is a
+    call of its own, beside the unwrapped wall."""
+    spent = {"pack": 0.0, "startup": 0.0, "kernel": 0.0}
+    saved = []
+
+    def wrap(stage, orig):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t0
+            return out
+        # run_rounds counts into the attribute its module name holds
+        if hasattr(orig, "launches"):
+            timed.launches = orig.launches
+        return timed
+
+    for stage, module, name in SPLIT_STAGES:
+        orig = getattr(module, name)
+        saved.append((module, name, orig))
+        setattr(module, name, wrap(stage, orig))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for module, name, orig in saved:
+            if hasattr(orig, "launches"):
+                orig.launches = getattr(module, name).launches
+            setattr(module, name, orig)
+    return dict(wall_s=wall, **{f"{k}_s": v for k, v in spent.items()},
+                other_s=wall - sum(spent.values()))
 
 
 def breakdown(fn, sum_of=None):
@@ -908,7 +1055,7 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
     e = x.element_size()
     nbytes = (e * (2 * x.numel() + B.numel() + C.numel()) + 4 * a.numel()
               + 4 * bh * p * n * (2 if with_s0 else 1))
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, CORE_PEAK_FLOPS[dtype])
     out = dict(batch=batch, seq=seq, heads=nh, head_dim=p, state=n,
                chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
                strong_decay=strong_decay, a_min=float(a.min()), **check,
@@ -979,16 +1126,20 @@ def main() -> int:
     torch.cuda.synchronize()
     sweep_s = time.time() - t0
     counts = read_counts()
-    launches = counts["round_step"]
-    if launches == 0 or counts["flash_attention"] or counts["flash_decode"] \
-            or counts["ssd_scan"]:
-        raise AssertionError(f"the sweep's launches: {counts}")
-    # kernel_vs_plain stepped the same packs the same way.
+    launches, steps = counts["round_step"], rsk.outer_steps()
+    # one launch per (trace, policy); kernel_vs_plain stepped the same
+    # packs the same way, chunk by chunk.
     f32 = [r for r in runs if r["dtype"] == "float32" and r["batch"] == 1]
-    if launches != sum(r["chunks"] for r in f32):
-        raise AssertionError(f"the sweep made {launches} launches, the "
+    if launches != len(f32) or any(v for k, v in counts.items()
+                                   if k != "round_step"):
+        raise AssertionError(f"the sweep's launches: {counts}, expected "
+                             f"{len(f32)} runs")
+    if steps != sum(r["chunks"] for r in f32):
+        raise AssertionError(f"the sweep ran {steps} outer steps, the "
                              f"chunk-by-chunk check "
                              f"{sum(r['chunks'] for r in f32)}")
+    split = wall_split(lambda: run_sweep_workloads(
+        grid, workloads, big, mode="rounds", device=device))
     t0 = time.time()
     plain = run_sweep_workloads(grid, workloads, big, mode="rounds",
                                 device=device,
@@ -1011,7 +1162,9 @@ def main() -> int:
     max_rounds = max(r.get("rounds", 0) for rs in rows for r in rs)
     emit("sweep", points=len(grid), workloads=len(workloads),
          horizon_days=big / DAY, kernel_launches=launches,
-         wall_s=sweep_s, plain_wall_s=plain_s, event_wall_s=event_s,
+         outer_steps=steps, kernel_device_ms=sum(r["run_ms"] for r in f32),
+         wall_s=sweep_s, wall_split=split, rows_equal_plain=True,
+         plain_wall_s=plain_s, event_wall_s=event_s,
          max_rounds=max_rounds,
          contract=CONTRACTS["rounds"].__dict__, rows_nasa=rows[0])
 
@@ -1024,13 +1177,14 @@ def main() -> int:
     torch.cuda.synchronize()
     coal_s = time.time() - t0
     counts = read_counts()
-    launches_c = counts["round_step"]
+    launches_c, steps_c = counts["round_step"], rsk.outer_steps()
     f32_c = [r for r in runs if r["dtype"] == "float32" and r["batch"] > 1]
-    if launches_c != sum(r["chunks"] for r in f32_c) or any(
+    if launches_c != len(f32_c) or steps_c != sum(
+            r["chunks"] for r in f32_c) or any(
             v for k, v in counts.items() if k != "round_step"):
         raise AssertionError(f"the coalesced sweep's launches: {counts}, "
-                             f"the chunk-by-chunk check "
-                             f"{sum(r['chunks'] for r in f32_c)}")
+                             f"{steps_c} outer steps; the chunk-by-chunk "
+                             f"check {sum(r['chunks'] for r in f32_c)}")
     for w in range(len(workloads)):
         for i, (a, b) in enumerate(zip(rows[w], rows_c[w])):
             if a["system_kind"] in ("fb", "flb_nub") and \
@@ -1044,6 +1198,9 @@ def main() -> int:
     if violations:
         raise AssertionError(f"coalesced rounds contract violated: "
                              f"{violations}")
+    split_c = wall_split(lambda: run_sweep_workloads(
+        grid, workloads, big, mode="rounds", device=device,
+        scan_options=coal_opts))
     # Both walls again, in the other order (coalesced first).
     again = {}
     for name, opts in (("coalesced", coal_opts),
@@ -1054,12 +1211,16 @@ def main() -> int:
         torch.cuda.synchronize()
         again[name] = time.time() - t0
     emit("sweep_coalesced", batch=COALESCE, kernel_launches=launches_c,
+         outer_steps=steps_c,
+         kernel_device_ms=sum(r["run_ms"] for r in f32_c),
          max_rounds=max(r.get("rounds", 0) for rs in rows_c for r in rs),
          coalesced=sum(r.get("coalesced", 0) for rs in rows_c for r in rs),
-         wall_s=coal_s, wall_again_s=again["coalesced"],
-         uncoalesced={"kernel_launches": launches, "max_rounds": max_rounds,
-                      "wall_s": sweep_s,
-                      "wall_again_s": again["uncoalesced"]},
+         wall_s=coal_s, wall_again_s=again["coalesced"], wall_split=split_c,
+         uncoalesced={"kernel_launches": launches, "outer_steps": steps,
+                      "max_rounds": max_rounds, "wall_s": sweep_s,
+                      "wall_again_s": again["uncoalesced"],
+                      "kernel_device_ms": sum(r["run_ms"] for r in f32),
+                      "wall_split": split},
          rows_nasa=rows_c[0])
 
     # --- headline queries, coalescing off and on
@@ -1073,7 +1234,8 @@ def main() -> int:
         hl = headline_queries(scan_options=opts, device=device)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
-        hl_launches = read_counts()["round_step"]
+        hl_counts = read_counts()
+        hl_launches, hl_steps = hl_counts["round_step"], rsk.outer_steps()
         for part, key in (("private", "min_fb_capacity"),
                           ("private", "dcs_size"), ("public", "flb_peak"),
                           ("public", "ec2_peak")):
@@ -1084,11 +1246,14 @@ def main() -> int:
                                        hl["public"]["peak_reduction"])
         if gate or not hl["gate"]["ok"]:
             raise AssertionError(f"{phase} HEADLINE_CONTRACT: {gate}")
-        if hl_launches == 0:
-            raise AssertionError(f"{phase} ran no round_step launch")
+        if hl_launches == 0 or hl_counts["round_step_chunk"]:
+            raise AssertionError(f"{phase} launches: {hl_counts}")
         walls[phase] = wall_s
+        hl_split = wall_split(lambda: headline_queries(scan_options=opts,
+                                                       device=device))
         emit(phase, wall_s=wall_s, headline_wall_s=walls["headline"],
-             round_step_launches=hl_launches, **hl)
+             round_step_launches=hl_launches, outer_steps=hl_steps,
+             wall_split=hl_split, **hl)
 
     # --- the serving slice at gemma2-2b's full width
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1138,7 +1303,12 @@ def main() -> int:
         return (sum(r[key] * r["chunks"] for r in cases)
                 / sum(r["chunks"] for r in cases))
 
-    bound_ms = per_launch("bound_ms")
+    # round_step: the engine's one-launch runs of the sweep (one per
+    # trace and policy), each timed, bounded and held against the plain
+    # host loop on its own pack; per launch, the mean over the runs.
+    def per_run(key, cases=f32):
+        return sum(r[key] for r in cases) / len(cases)
+
     line = {"kernels": [{
         "name": "round_step",
         "route": "cuda",
@@ -1146,20 +1316,28 @@ def main() -> int:
         "replaces": "src/repro/kernels/round_step.py:165",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
-        "ms": per_launch("kernel_ms_per_launch"),
-        "plain_ms": per_launch("plain_ms_per_chunk"),
-        "bound_ms": bound_ms,
-        # the term that bounds the larger share of the launches
-        "bound_by": "bytes" if 2 * sum(
-            r["chunks"] for r in f32 if r["bound_by"] == "bytes")
-        >= launches else "operations",
+        "ms": per_run("run_ms"),
+        "plain_ms": per_run("plain_run_ms"),
+        "bound_ms": per_run("run_bound_ms"),
+        "bound_by": "bytes" if 2 * sum(r["run_bound_by"] == "bytes"
+                                       for r in f32) >= len(f32)
+        else "operations",
         "library_ms": None,
-        # the coalesced sweep (batch 8): its launches, and the same
-        # launch-weighted times over its float32 chunks
+        # the outer steps of those runs (the per-chunk path's launches),
+        # and the one-step entry's time per launch (launch-weighted)
+        "outer_steps": steps,
+        "ms_per_outer_step": sum(r["run_ms"] for r in f32) / steps,
+        "chunk_ms": per_launch("kernel_ms_per_launch"),
+        "chunk_bound_ms": per_launch("bound_ms"),
+        # the same for the coalesced sweep (batch 8)
         "coalesced_launches": launches_c,
-        "coalesced_ms": per_launch("kernel_ms_per_launch", f32_c),
-        "coalesced_plain_ms": per_launch("plain_ms_per_chunk", f32_c),
-        "coalesced_bound_ms": per_launch("bound_ms", f32_c),
+        "coalesced_outer_steps": steps_c,
+        "coalesced_ms": per_run("run_ms", f32_c),
+        "coalesced_plain_ms": per_run("plain_run_ms", f32_c),
+        "coalesced_bound_ms": per_run("run_bound_ms", f32_c),
+        "coalesced_ms_per_outer_step": sum(r["run_ms"] for r in f32_c)
+        / steps_c,
+        "coalesced_chunk_ms": per_launch("kernel_ms_per_launch", f32_c),
         "coalesced_max_abs_err": max(r["max_abs_err"] for r in f32_c),
     }]}
     # One row per attention kernel and dtype, at its path's shape, the
@@ -1196,6 +1374,8 @@ def main() -> int:
             "library_ms": mean_of(sel, "library_ms"),
             "dtype": match["dtype"],
         }
+        if match["dtype"] == "float32" and name == "flash_attention":
+            row["cuda_core_bound_ms"] = mean_of(sel, "cuda_core_bound_ms")
         line["kernels"].append(row)
     # ssd_scan: the generate_mamba path's bfloat16 prefill (batch 8, L
     # 4096), the launches of that path.
@@ -1215,7 +1395,8 @@ def main() -> int:
         "bound_by": sel[0]["bound_by"],
         "library_ms": None,
     })
-    emit("chain", chain_ms=per_launch("chain_ms"), bound_ms=bound_ms,
+    emit("chain", chain_ms=per_launch("chain_ms"),
+         bound_ms=per_launch("bound_ms"),
          coalesced_chain_ms=per_launch("chain_ms", f32_c),
          coalesced_bound_ms=per_launch("bound_ms", f32_c),
          note="serial chain of block barriers per launch x measured "

@@ -12,32 +12,62 @@
 // Layout: q (BH, Sq, HD), k / v (BKV, Skv, HD), o (BH, Sq, HD), all
 // contiguous, BH = BKV * G; float32 or bfloat16 (q, k, v and o share
 // the type). HD is one of 16, 32, 64, 128, 256. float32 runs
-// flash_fwd_kernel, bfloat16 runs tc::flash_fwd_tc; both compute in
-// float32 and round the output once.
+// tf32::flash_fwd_tf32, bfloat16 runs tc::flash_fwd_tc; both on the
+// tensor cores with float32 sums, the bfloat16 one rounding its output
+// once.
+// A query row that sees no key (possible only with q_offset) is 0.
 //
 // What bounds it: at the prefill shapes of gemma2-2b (HD 256, S in the
 // thousands) the work is 4*HD flops per visible (q, k) pair against
-// 4*S*HD bytes per head, so it is bound by arithmetic: the float32
-// kernel by the CUDA cores (67 TFLOP/s), the bfloat16 one by the tensor
-// cores (989 TFLOP/s dense) and, beside them, the float32 softmax
-// (tanh, exp) on the CUDA cores and special-function units.
+// 4*S*HD bytes per head, so it is bound by arithmetic: the tensor cores
+// (495 TFLOP/s TF32, 989 bfloat16, dense) and, beside them, the float32
+// softmax (tanh, exp) on the CUDA cores and special-function units.
 //
-// float32 (flash_fwd_kernel). Every product in float32 on the CUDA
-// cores (no tensor cores, no TMA): the float32 path must agree with the
-// plain version to ~1e-5, which TF32 tensor cores would not. One thread
-// block of 256 threads computes a BQ = 64 row tile of one q row and
-// walks the BK = 64 key tiles it can see: key tiles entirely above the
-// causal diagonal or entirely left of the window are never loaded (the
-// Pallas kernel skips them too). Tiles: the TPU's 128 x 128 blocks at HD
-// 256 need q + k + v = 384 KB in float32, far above the 227 KB a Hopper
-// block may use; 64 x 64 tiles of q, k and v in float32 (rows padded by
-// 4 floats so 16-byte row reads hit distinct banks) plus the 64 x 64
-// probability tile take 212 KB at HD 256, one block per SM. Each thread
-// owns a 4 x 4 patch of the score tile (rows 4*ty.., columns tx + 16*j)
-// and the same 4 rows x HD/16 columns of the output accumulator in
-// registers; a row's max and sum are reduced over the 16 threads that
-// share it with warp shuffles. Causal tiles are issued heaviest first
-// (the last q tile first).
+// float32 (tf32::flash_fwd_tf32), on the tensor cores as 3 x TF32. One
+// TF32 product (10 mantissa bits) moves a score by about 1e-3 and misses
+// the float32 gate (1e-4); so every operand x is split into two TF32
+// terms, big = tf32(x) and small = tf32(x - big), and each product is
+// small x big + big x small + big x big (small x small, about 2^-22 of a
+// term, is dropped): close to float32 accuracy at three times the
+// products, 165 TFLOP/s of counted work at the 495 TFLOP/s peak against
+// the CUDA cores' 67. Chosen over three bfloat16 terms (six products, the
+// same rate) because it needs two stored terms per operand, not three,
+// and Q alone fills most of the shared memory. One block is one
+// warpgroup (128 threads) with BQ = 64 q rows, walking BK = 32 key tiles
+// as the bfloat16 kernel does (tiles outside the causal / window view
+// skipped).
+//  - S = Q K^T: wgmma m64n32k8 TF32, both operands K-major from shared
+//    memory (TF32 takes no other layout), HD / 8 steps of three
+//    products. Q is scaled by 1/sqrt(HD) in float32 before the split, as
+//    the plain version scales it. The tensor cores' float32 sums round
+//    toward zero, an error that grows with the size of the sum and the
+//    number of steps into it (summed in one accumulator on an H100, the
+//    softcap case's scores, about N(0, 40^2), moved the output by
+//    1.1e-4, past the gate): the
+//    cross products go to an accumulator of their own (2^-10 of the
+//    scores), big x big to a fresh one per 128 head-dim columns, and those
+//    sums are added on the CUDA cores (round to nearest).
+//  - Softcap, mask (-2e38) and the online softmax in float32 registers,
+//    as in the bfloat16 kernel (ex2, the softcap's tanh from one ex2).
+//  - O += P V: P split in registers into the TF32 A fragments (three
+//    register-A wgmma m64n64k8 per 8 keys and 64 output columns), summed
+//    per tile in a fresh accumulator and added into O on the CUDA cores,
+//    for the same reason (in O itself, the truncation grows with the
+//    keys: gemma2-2b's prefill logits moved by 2.4e-4). TF32's
+//    B operand must be K-major, so V is stored transposed (HD rows of 32
+//    keys); and since a thread's scores hold keys 2c, 2c + 1 where the A
+//    fragment wants columns c, c + 4, each 8 keys of V^T are stored in
+//    the order 0, 2, 4, 6, 1, 3, 5, 7, so no score moves between threads.
+//  - Shared memory: Q (big, small) 2 x 64 x HD x 4 bytes, one (big,
+//    small) pair of 2 x 32 x HD x 4 bytes that holds the K tile and then
+//    the V^T tile, and one raw float32 tile (32 x HD x 4) that cp.async
+//    fills under the products: V under S = Q K^T and the softmax, the
+//    next K under P V. Each raw tile is split into the pair by a pass
+//    through registers (V transposed on the way). 225 KB at HD 256, one
+//    block per SM (HD 128: 113 KB). HD < 64 is padded to 64 with zeros.
+//  - Registers at HD 256: O is 64 x 256 float32 = 128 per thread, the
+//    three score accumulators 48, P's two terms 32 and a tile's P V
+//    block 32; counts and spills per HD are in PERF.md.
 //
 // bfloat16 (tc::flash_fwd_tc), on the tensor cores with float32
 // semantics. One block of two warpgroups (256 threads) takes BQ = 128 q
@@ -76,201 +106,404 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
+// ------------------------------------ float32, tensor cores (3 x TF32)
 
-// Copy rows [r0, r0 + ROWS) of a (n_rows, HD) matrix into shared memory
-// as float32 with row stride LD, times `scale`; rows past n_rows are 0.
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void stage(float* sm, const float* g, int r0,
-                                      int n_rows, float scale) {
-  constexpr int V = 4;
-  constexpr int CH = HD / V;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * V;
-    float vals[V];
-    if (r0 + r < n_rows) {
-      load16(g + static_cast<size_t>(r0 + r) * HD + c, vals);
+namespace tf32 {
+
+constexpr int BQ = 64;    // q rows per block: one warpgroup
+constexpr int BK = 32;    // keys per tile
+constexpr int NT = 128;
+constexpr int FLUSH = 128;  // head-dim columns per fresh big x big sum
+
+template <int HD>
+struct Tiles {
+  static constexpr int DP = HD < 64 ? 64 : HD;   // padded row width
+  static constexpr int Q_TERM = BQ * DP * 4;     // one term of Q
+  static constexpr int KV_TERM = BK * DP * 4;    // one K, V^T or raw tile
+  // Q (big, small); one (big, small) pair that holds the K tile and then
+  // the V^T tile; the raw float32 tile the next operand streams into;
+  // slack to align the base to 1024 bytes.
+  static constexpr int SMEM = 2 * Q_TERM + 3 * KV_TERM + 1024;
+};
+
+// x = big + small, each TF32: big = tf32(x), small = tf32(x - big)
+// (x - big is exact in float32).
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr,
+                                           const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_shared(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Byte offset of 16-byte chunk c4 of row r in a K-major operand tile of
+// ROWS rows: 32-column blocks of ROWS 128-byte rows, 128-byte swizzle.
+template <int ROWS>
+__device__ __forceinline__ uint32_t kmajor(int r, int c4) {
+  return (c4 / 8) * (ROWS * 128) + sw128(r, c4 % 8);
+}
+
+// Rows [r0, r0 + BQ) of q, times `scale`, split into two TF32 terms at
+// `big` and `small` in the K-major layout. Rows past n_rows and columns
+// past HD are 0.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t big, uint32_t small,
+                                       const float* g, int r0, int n_rows,
+                                       float scale) {
+  constexpr int C4 = Tiles<HD>::DP / 4;      // 16-byte chunks per row
+#pragma unroll 4
+  for (int it = 0; it < BQ * C4 / NT; ++it) {
+    const int idx = static_cast<int>(threadIdx.x) + it * NT;
+    const int r = idx / C4;
+    const int c4 = idx % C4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n_rows && 4 * c4 < HD)
+      x = *reinterpret_cast<const float4*>(
+          g + static_cast<size_t>(r0 + r) * HD + 4 * c4);
+    uint32_t b[4], sm[4];
+    split(x.x * scale, b[0], sm[0]);
+    split(x.y * scale, b[1], sm[1]);
+    split(x.z * scale, b[2], sm[2]);
+    split(x.w * scale, b[3], sm[3]);
+    const uint32_t off = kmajor<BQ>(r, c4);
+    st_shared4(big + off, b);
+    st_shared4(small + off, sm);
+  }
+}
+
+// Keys [k0, k0 + BK) of k or v, as raw float32, into `raw` by cp.async:
+// K in the K-major layout (kmajor), V row-major (BK rows of DP floats).
+// Keys past n_keys and columns past HD are zero-filled.
+template <int HD, bool KMAJOR>
+__device__ __forceinline__ void fetch_raw(uint32_t raw, const float* g,
+                                          int k0, int n_keys) {
+  constexpr int C4 = Tiles<HD>::DP / 4;
+#pragma unroll 4
+  for (int it = 0; it < BK * C4 / NT; ++it) {
+    const int idx = static_cast<int>(threadIdx.x) + it * NT;
+    const int r = idx / C4;
+    const int c4 = idx % C4;
+    const bool ok = k0 + r < n_keys && 4 * c4 < HD;
+    const float* src = g + (ok ? static_cast<size_t>(k0 + r) * HD + 4 * c4
+                               : 0);
+    cp_async16(raw + (KMAJOR ? kmajor<BK>(r, c4) : 16 * idx), src,
+               ok ? 16 : 0);
+  }
+}
+
+// The raw K tile, already in the K-major layout, split in place of its
+// layout into `big` and `small`.
+template <int HD>
+__device__ __forceinline__ void split_k(uint32_t big, uint32_t small,
+                                        uint32_t raw) {
+#pragma unroll 2
+  for (int it = 0; it < Tiles<HD>::KV_TERM / 16 / NT; ++it) {
+    const uint32_t off = 16 * (threadIdx.x + it * NT);
+    const float4 x = ld_shared4(raw + off);
+    uint32_t b[4], sm[4];
+    split(x.x, b[0], sm[0]);
+    split(x.y, b[1], sm[1]);
+    split(x.z, b[2], sm[2]);
+    split(x.w, b[3], sm[3]);
+    st_shared4(big + off, b);
+    st_shared4(small + off, sm);
+  }
+}
+
+// The raw row-major V tile as V^T, split into `big` and `small`: DP rows
+// (one per head-dim column) of BK keys, 128 bytes under the 128-byte
+// swizzle (the K-major B operand of P V). Within each group of 8 keys
+// the positions hold keys 0, 2, 4, 6, 1, 3, 5, 7: the order in which a
+// thread's score accumulators fill the TF32 A fragment (see the P V
+// step), so no score moves between threads.
+template <int HD>
+__device__ __forceinline__ void split_vt(uint32_t big, uint32_t small,
+                                         uint32_t raw) {
+  constexpr int DP = Tiles<HD>::DP;
+#pragma unroll 2
+  for (int it = 0; it < DP * 8 / NT; ++it) {
+    const int idx = static_cast<int>(threadIdx.x) + it * NT;
+    const int d = idx % DP;
+    const int j = idx / DP;         // chunk: keys 8 (j / 2) + j % 2 + 2e
+    uint32_t b[4], sm[4];
 #pragma unroll
-      for (int e = 0; e < V; ++e) vals[e] *= scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) vals[e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * (j >> 1) + (j & 1) + 2 * e;
+      split(ld_shared(raw + 4 * (key * DP + d)), b[e], sm[e]);
     }
-    float* dst = sm + r * LD + c;
-#pragma unroll
-    for (int e = 0; e < V; e += 4)
-      *reinterpret_cast<float4*>(dst + e) =
-          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
+    const uint32_t off = sw128(d, j);
+    st_shared4(big + off, b);
+    st_shared4(small + off, sm);
   }
 }
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (static_cast<size_t>(BQ + 2 * BK) * (HD + 4) + BK * (BQ + 4));
-}
-
-template <int HD>
 __global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int sq,
-                     int skv, int g, int causal, int window, float softcap,
-                     int q_offset, float scale) {
-  constexpr int LD = HD + 4;      // padded row stride of q / k / v tiles
-  constexpr int LDP = BQ + 4;     // row stride of the transposed P tile
-  constexpr int NC = HD / 16;     // output columns per thread
-  constexpr bool V4 = (HD % 64) == 0;  // columns owned as float4 runs
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;       // sP[key][row]
+    flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int sq,
+                   int skv, int g, int causal, int window, float softcap,
+                   int q_offset, float scale) {
+  using TL = Tiles<HD>;
+  constexpr int DP = TL::DP;
+  constexpr int NCB = DP / 64;    // 64-column output blocks
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQb = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQs = sQb + TL::Q_TERM;
+  const uint32_t sB = sQs + TL::Q_TERM;     // K tile, then V^T tile
+  const uint32_t sS = sB + TL::KV_TERM;
+  const uint32_t sR = sS + TL::KV_TERM;     // the raw tile streaming in
 
+  const int bh = blockIdx.x;
   const int nq = (sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int bh = blockIdx.y;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * BQ;
   const int bkv = bh / g;
   const float* qg = q + static_cast<size_t>(bh) * sq * HD;
   const float* kg = k + static_cast<size_t>(bkv) * skv * HD;
   const float* vg = v + static_cast<size_t>(bkv) * skv * HD;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;        // rows 4*ty .. 4*ty+3
-  const int tx = tid & 15;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;             // rows 16 warp + gr (+ 8)
+  const int gc = lane & 3;              // columns 8n + 2 gc (+ 1)
 
-  stage<HD, BQ, LD>(sQ, qg, q0, sq, scale);
-
-  // Keys any row of this tile can see.
+  // Keys any row of the block can see, as whole tiles.
   const int q_first = q_offset + q0;
   const int q_last = q_offset + min(q0 + BQ, sq) - 1;
   const int k_end = causal ? min(skv, q_last + 1) : skv;
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int kt0 = k_begin / BK;
+  const int ntiles = k_end > kt0 * BK ? (k_end - kt0 * BK + BK - 1) / BK : 0;
+  // This thread's two rows, as absolute positions.
+  const int pos0 = q_first + 16 * warp + gr;
+  const int pos1 = pos0 + 8;
+  const bool capped = softcap > 0.f;
+  const float inv_cap = capped ? 1.f / softcap : 0.f;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  if (ntiles > 0) fetch_raw<HD, true>(sR, kg, kt0 * BK, skv);
+  cp_async_commit();
+  // Q scaled in float32 (as the plain version scales it) and then split.
+  load_q<HD>(sQb, sQs, qg, q0, sq, scale);
 
-  for (int kb0 = (k_begin / BK) * BK; kb0 < k_end; kb0 += BK) {
-    __syncthreads();              // the previous tile's readers are done
-    stage<HD, BK, LD>(sK, kg, kb0, skv, 1.f);
-    stage<HD, BK, LD>(sV, vg, kb0, skv, 1.f);
+  float acc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kb0 = (kt0 + it) * BK;
+    // The raw K tile has landed, and every warp's P V reads of the
+    // (big, small) pair are done: split K into it.
+    cp_async_wait<0>();
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(sQ + (4 * ty + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + 4 * ty + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = kb0 + tx + 16 * j;
-        float x = s[i][j];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kpos < skv;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        s[i][j] = ok ? x : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        ps += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = alpha * l[i] + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sP + (tx + 16 * j) * LDP + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    split_k<HD>(sB, sS, sR);
+    fence_proxy_async();
     __syncthreads();
+    // V streams in under S = Q K^T and the softmax.
+    fetch_raw<HD, false>(sR, vg, kb0, skv);
+    cp_async_commit();
 
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(sP + kk * LDP + 4 * ty);
-      const float* vrow = sV + kk * LD;
-      if constexpr (V4) {
+    // S = Q K^T as three TF32 products per 8 columns of the head dim:
+    // small x big, big x small, big x big (small x small, about 2^-22 of
+    // a term, is left out). The tensor cores' float32 sums round toward
+    // zero, an error that grows with the sum and the number of steps
+    // into it: the two small cross products go to their own accumulator
+    // c (2^-10 of the scores), and big x big to a fresh one (t) for each
+    // FLUSH columns, added into s on the CUDA cores (round to nearest).
+    float s[16], t[16], c[16];
 #pragma unroll
-        for (int jj = 0; jj < HD / 64; ++jj) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(vrow + 4 * tx + 64 * jj);
-          const float ve[4] = {vv.x, vv.y, vv.z, vv.w};
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[0][4 * jj + e] = fmaf(p.x, ve[e], acc[0][4 * jj + e]);
-            acc[1][4 * jj + e] = fmaf(p.y, ve[e], acc[1][4 * jj + e]);
-            acc[2][4 * jj + e] = fmaf(p.z, ve[e], acc[2][4 * jj + e]);
-            acc[3][4 * jj + e] = fmaf(p.w, ve[e], acc[3][4 * jj + e]);
-          }
-        }
-      } else {
+    for (int blk = 0; blk < (DP + FLUSH - 1) / FLUSH; ++blk) {
+      fence_regs(t);
+      fence_regs(c);
+      wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float ve = vrow[tx + 16 * c];
-          acc[0][c] = fmaf(p.x, ve, acc[0][c]);
-          acc[1][c] = fmaf(p.y, ve, acc[1][c]);
-          acc[2][c] = fmaf(p.z, ve, acc[2][c]);
-          acc[3][c] = fmaf(p.w, ve, acc[3][c]);
-        }
+      for (int kk = (FLUSH / 8) * blk; kk < min(DP, FLUSH * (blk + 1)) / 8;
+           ++kk) {
+        const uint32_t qa = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+        const uint32_t ka = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+        const uint64_t qb = desc_sw128(sQb + qa, 16, 1024);
+        const uint64_t kb = desc_sw128(sB + ka, 16, 1024);
+        wgmma_tf32_ss(t, qb, kb, kk > (FLUSH / 8) * blk);
+        wgmma_tf32_ss(c, desc_sw128(sQs + qa, 16, 1024), kb, kk > 0);
+        wgmma_tf32_ss(c, qb, desc_sw128(sS + ka, 16, 1024), 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] += t[i];
+    }
+    fence_regs(c);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] += c[i];
+
+    // Softcap, mask and the online softmax in float32 (exponentials on
+    // the special-function unit, as exp2 of log2(e)-scaled differences).
+    const bool inside = kb0 + BK <= skv &&
+                        (!causal || kb0 + BK - 1 <= q_first) &&
+                        (window <= 0 || kb0 > q_last - window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    if (inside) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float xc = cap_tanh(s[i] * inv_cap, softcap);
+        s[i] = capped ? xc : s[i];
+        if (i & 2)
+          mx1 = fmaxf(mx1, s[i]);
+        else
+          mx0 = fmaxf(mx0, s[i]);
+      }
+    } else {
+      const int lim0 = causal ? min(pos0 + 1, skv) : skv;   // keys < lim
+      const int lim1 = causal ? min(pos1 + 1, skv) : skv;
+      const int low0 = window > 0 ? pos0 - window : -1;     // keys > low
+      const int low1 = window > 0 ? pos1 - window : -1;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float xc = cap_tanh(s[i] * inv_cap, softcap);
+        const float x = capped ? xc : s[i];
+        const int kpos = kb0 + 8 * (i / 4) + 2 * gc + (i & 1);
+        const bool ok = (i & 2) ? (kpos < lim1 && kpos > low1)
+                                : (kpos < lim0 && kpos > low0);
+        s[i] = ok ? x : NEG_INF;
+        if (i & 2)
+          mx1 = fmaxf(mx1, s[i]);
+        else
+          mx0 = fmaxf(mx0, s[i]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = ex2((m0 - mn0) * LOG2E), a1 = ex2((m1 - mn1) * LOG2E);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      s[i] = ex2((s[i] - ((i & 2) ? mn1 : mn0)) * LOG2E);
+      if (i & 2)
+        ps1 += s[i];
+      else
+        ps0 += s[i];
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, off);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, off);
+    }
+    l0 = a0 * l0 + ps0;
+    l1 = a1 * l1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] *= (i & 2) ? a1 : a0;
+      fence_regs(acc[cb]);
+    }
+
+    // The raw V tile has landed, and every warp's S reads of the pair
+    // are done: split V^T into it, then stream the next K tile in under
+    // P V.
+    cp_async_wait<0>();
+    __syncthreads();
+    split_vt<HD>(sB, sS, sR);
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < ntiles) fetch_raw<HD, true>(sR, kg, kb0 + BK, skv);
+    cp_async_commit();
+
+    // P = P_big + P_small as the TF32 A fragments of the four 8-key
+    // steps. A thread's scores of 8 keys sit at keys 2 gc and 2 gc + 1
+    // of rows gr and gr + 8; the fragment wants columns gc and gc + 4 of
+    // those rows, so column c holds key 2c (c < 4) or 2 (c - 4) + 1, and
+    // the V^T tile is stored in that key order (split_vt).
+    uint32_t pb[4][4], pl[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      split(s[4 * n + 0], pb[n][0], pl[n][0]);
+      split(s[4 * n + 2], pb[n][1], pl[n][1]);
+      split(s[4 * n + 1], pb[n][2], pl[n][2]);
+      split(s[4 * n + 3], pb[n][3], pl[n][3]);
+      fence_regs(pb[n]);
+      fence_regs(pl[n]);
+    }
+
+    // O += P V: small x big, big x small, big x big per 8 keys, summed
+    // for the tile's 32 keys in a fresh accumulator per 64 output columns
+    // and added into O on the CUDA cores, so O takes one rounded-to-
+    // nearest add per tile instead of twelve truncating ones (in one
+    // accumulator the truncation grows with the keys: logits of gemma2's
+    // 26 layers moved by 2.4e-4 at 6000 tokens on an H100).
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      float pv[32];
+      fence_regs(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const uint32_t va = cb * (64 * 128) + n * 32;
+        const uint64_t vb = desc_sw128(sB + va, 16, 1024);
+        wgmma_tf32_rs(pv, pl[n], vb, n > 0);
+        wgmma_tf32_rs(pv, pb[n], desc_sw128(sS + va, 16, 1024), 1);
+        wgmma_tf32_rs(pv, pb[n], vb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] += pv[i];
     }
   }
+  cp_async_wait<0>();   // nothing left in flight
 
+  // A row that saw no visible key (possible only with q_offset) has m
+  // still at NEG_INF: it is written as 0, like the plain version's.
   float* og = o + static_cast<size_t>(bh) * sq * HD;
+  const float inv0 = m0 == NEG_INF ? 0.f : 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = m1 == NEG_INF ? 0.f : 1.f / fmaxf(l1, 1e-30f);
+  const int row0 = q0 + 16 * warp + gr;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = V4 ? 4 * tx + 64 * (c / 4) + (c % 4) : tx + 16 * c;
-      og[static_cast<size_t>(row) * HD + col] = acc[i][c] * inv;
+    for (int n = 0; n < 8; ++n) {
+      const int col = 64 * cb + 8 * n + 2 * gc;
+      if (col >= HD) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= sq) continue;
+        const float inv = h ? inv1 : inv0;
+        *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * HD + col) =
+            make_float2(acc[cb][4 * n + 2 * h] * inv,
+                        acc[cb][4 * n + 2 * h + 1] * inv);
+      }
     }
-  }
 }
 
 template <int HD>
@@ -278,19 +511,34 @@ cudaError_t launch(int bh, int sq, int skv, int g, int causal, int window,
                    float softcap, int q_offset, float scale, const void* q,
                    const void* k, const void* v, void* o,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<HD>;
+  const int smem = Tiles<HD>::SMEM;
+  auto kernel = flash_fwd_tf32<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  const dim3 grid(bh, (sq + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, g, causal,
-      window, softcap, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, g,
+      causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
 }
+
+cudaError_t dispatch(int hd, int bh, int sq, int skv, int g, int causal,
+                     int window, float softcap, int q_offset, float scale,
+                     const void* q, const void* k, const void* v, void* o,
+                     cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
+    case 32: return launch<32>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
+    case 64: return launch<64>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
+    case 128: return launch<128>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
+    case 256: return launch<256>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf32
 
 // ------------------------------------------------ bfloat16, tensor cores
 
@@ -559,9 +807,10 @@ __global__ void __launch_bounds__(NT, 1)
   cp_async_wait<0>();   // nothing left in flight (no tile: Q's group)
 
   if (!w_live) return;
+  // A row that saw no visible key (possible only with q_offset): 0.
   __nv_bfloat16* og = o + static_cast<size_t>(bh) * sq * HD;
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float inv0 = m0 == NEG_INF ? 0.f : 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = m1 == NEG_INF ? 0.f : 1.f / fmaxf(l1, 1e-30f);
   const int row0 = w_row0 + 16 * warp + gr;
 #pragma unroll
   for (int cb = 0; cb < NCB; ++cb)
@@ -617,20 +866,6 @@ cudaError_t dispatch(int hd, int bh, int sq, int skv, int g, int causal,
 
 }  // namespace tc
 
-cudaError_t dispatch(int hd, int bh, int sq, int skv, int g, int causal,
-                     int window, float softcap, int q_offset, float scale,
-                     const void* q, const void* k, const void* v, void* o,
-                     cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<16>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
-    case 32: return launch<32>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
-    case 64: return launch<64>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
-    case 128: return launch<128>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
-    case 256: return launch<256>(bh, sq, skv, g, causal, window, softcap, q_offset, scale, q, k, v, o, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -649,8 +884,8 @@ int flash_attention_fwd(int dtype, int bh, int bkv, int sq, int skv, int hd,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? dispatch(hd, bh, sq, skv, g, causal, window, softcap, q_offset,
-                     scale, q, k, v, o, s)
+          ? tf32::dispatch(hd, bh, sq, skv, g, causal, window, softcap,
+                           q_offset, scale, q, k, v, o, s)
           : dtype == 1 ? tc::dispatch(hd, bh, sq, skv, g, causal, window,
                                       softcap, q_offset, scale, q, k, v, o, s)
                        : cudaErrorInvalidValue;

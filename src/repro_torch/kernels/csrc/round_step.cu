@@ -1,16 +1,26 @@
-// Fused outer step of the event-rounds engine (repro_torch.sim.rounds).
+// Fused outer steps of the event-rounds engine (repro_torch.sim.rounds).
 //
 // Replaces the Pallas kernel repro.kernels.round_step.chunk_step of the JAX
-// package (src/repro/kernels/round_step.py:165, body _chunk_kernel :143,
-// which runs repro.sim.rounds._chunk_core). One launch advances every
-// (point x trace) lane by one outer step: stable compaction of the done
-// window slots, admission of the next job-table rows into the freed tail,
-// the power-of-two kill classes, then `compact_every` event rounds (next-
-// event horizon, retroactive starts, exact completions, `ff_passes`
-// first-fit passes, the section 5.1 size-class kills for FB or the section
-// 5.2 U/V/G adjustment at ticks for FLB-NUB). Packed state in, packed state
-// out, in the layout of repro_torch.kernels.round_step (sc: 20 scalars,
-// win: 7 x K rows).
+// package (src/repro/kernels/round_step.py:165, body _chunk_kernel :137,
+// which runs repro.sim.rounds._chunk_core) and, on the engine's path, the
+// while_loop the JAX package runs around it on the device
+// (src/repro/sim/rounds.py:1108-1120). One outer step of a lane: stable
+// compaction of the done window slots, admission of the next job-table
+// rows into the freed tail, the power-of-two kill classes, then
+// `compact_every` event rounds (next-event horizon, retroactive starts,
+// exact completions, `ff_passes` first-fit passes, the section 5.1
+// size-class kills for FB or the section 5.2 U/V/G adjustment at ticks for
+// FLB-NUB). Packed state in, packed state out, in the layout of
+// repro_torch.kernels.round_step (sc: 20 scalars, win: 7 x K rows).
+//
+// Two entries share that step (outer_step):
+//   * round_step_run, the engine's path: one launch per policy runs every
+//     lane's whole outer loop, each block looping its own lane while
+//     (steps < outer_max) & (t < duration), the reference's per-lane
+//     while_loop predicate, with the state in registers between steps;
+//     it writes the state once at the end, with each lane's step count;
+//   * round_step_chunk: one outer step of every lane per launch, which the
+//     after-every-chunk comparison with the plain version steps through.
 //
 // With `batch` > 1 each round also runs the contended-stretch coalescer
 // (repro_torch.sim.rounds._coalesce): while a queue existed at the round
@@ -23,24 +33,30 @@
 // block-wide reductions and scans a round needs (each waits on the one
 // before it: the horizon mins, the fresh-submit sum, the completion folds,
 // the class sums and threshold suffix scan, two first-fit passes of a scan
-// plus a sum each, the post-action queue sums), i.e. latency. The
-// coalescer adds 2 * batch + 7 barriers to a round whose lane has a queue
-// (batch + 1 reductions for the instants and the frontier, one scan for
-// the admission prefix, one barrier for the started-by buckets, one
-// reduction for the divergence instant) and drops the horizon's three
-// reductions (6 barriers), which that lane does not need; a lane without
-// a queue skips the coalescer whole and runs one paired reduction for
-// its horizon instead of three (repro_torch.kernels.round_step.
-// chain_barriers counts the first case, an upper bound).
+// plus a sum each, the post-action queue sums), i.e. latency, times the
+// outer steps of the lane that needs the most. Run one step per launch,
+// the engine also paid a host round trip per step (a sync on the live
+// test, two selects, a launch), several times the kernel's own time; the
+// run entry pays one launch and no sync per policy. The coalescer adds
+// 2 * batch + 7 barriers to a round whose lane has a queue (batch + 1
+// reductions for the instants and the frontier, one scan for the
+// admission prefix, one barrier for the started-by buckets, one reduction
+// for the divergence instant) and drops the horizon's three reductions
+// (6 barriers), which that lane does not need; a lane without a queue
+// skips the coalescer whole and runs one paired reduction for its horizon
+// instead of three (repro_torch.kernels.round_step.chain_barriers counts
+// the first case, an upper bound).
 //
 // What the design does about it:
 //   * one thread block per lane, one thread per window slot (K = 192 FB,
 //     96 FLB), so every lane-parallel step is one instruction per thread
-//     and the lanes of a sweep run on separate SMs;
-//   * a slot's window row lives in registers for the whole chunk and only
+//     and the lanes of a sweep run on separate SMs (a paper_grid(128)
+//     sweep has 42 lanes per policy: a third of the 132 SMs);
+//   * a slot's window row lives in registers for the whole run and only
 //     the compaction goes through shared memory; the loop scalars live in
 //     registers too, replicated in every thread: each reduction ends with
-//     every thread holding the same result, so no broadcast is needed;
+//     every thread holding the same result, so no broadcast is needed, and
+//     the loop's exit test is the same in every thread;
 //   * reductions are warp shuffles plus one pass over at most 32 warp
 //     partials; the 16 kill-class sums and the coalescer's started-by
 //     buckets are shared-memory atomics, exact because every size is an
@@ -49,8 +65,6 @@
 //     every thread of a block, so a block branches around the coalescer
 //     and its barriers without divergence; the coalescer is a template
 //     flag, and the batch == 1 instantiation has none of it.
-// Running the whole outer loop inside one launch (instead of one launch per
-// outer step) is the next step and is not done here.
 //
 // Exactness: every value a decision reads is a sum of integer-valued floats
 // (sizes, counts, flags), exact in any order, and every time is one IEEE
@@ -59,6 +73,9 @@
 // coalescer's freed and started masses, admission needs and free-capacity
 // estimates are such sums too, and each start or end time one add. Build
 // without fast math and with -fmad=false, so no product is fused into a sum.
+//
+// The run entry does the same arithmetic per step as the chunk entry, so
+// its rows equal the per-chunk path's bit for bit.
 //
 // Scope: any batch <= K; no fault tables.
 
@@ -263,68 +280,155 @@ __device__ __forceinline__ bool first_fit(T& free, bool queued, T sz,
   return started;
 }
 
-template <typename T, bool FB, bool COAL>
-__global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
-                             int ff_passes, int batch, double duration,
-                             const T* __restrict__ jobs_all,
-                             const T* __restrict__ rises_all,
-                             const T* __restrict__ wstab_all,
-                             const T* __restrict__ prm_all,
-                             const T* __restrict__ sc_in,
-                             const T* __restrict__ win_in,
-                             T* __restrict__ sc_out,
-                             T* __restrict__ win_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Scratch<T>& s = *reinterpret_cast<Scratch<T>*>(smem_raw);
-  T* cmp = reinterpret_cast<T*>(smem_raw + sizeof(Scratch<T>));  // 6 x K
-  // The coalescer's per-instant values (batch each): the instants, the
-  // cumulative freed mass and the started-by buckets.
-  T* tau = cmp + 6 * K;
-  T* fcum = tau + batch;
-  T* hist = fcum + batch;
+// What one lane reads besides its state: its job table, its FB rise
+// stops, its WS fold tables and its policy scalars.
+template <typename T> struct LaneIn {
+  const T *jobs, *rise_t, *rise_v, *winmax, *at_tick;
+  T L, C, B, lb_ws, U, V, G;
+};
 
-  const int n = blockIdx.x;
+// The loop scalars, replicated in every thread of the lane's block.
+template <typename T> struct LaneState {
+  T t, owned, pool, used, wsv, alloc_prev;
+  bool has_queue;
+  int rise_i, next_row;
+  T acc[N_ACC];
+};
+
+// The static shape of a launch.
+struct Dims {
+  int K, Jp, NR, NT, rounds, ff_passes, batch;
+};
+
+// The block's shared memory: the reduction scratch, the compaction
+// buffer (6 x K) and the coalescer's per-instant values (batch each:
+// the instants, the cumulative freed mass and the started-by buckets).
+template <typename T> struct Shared {
+  Scratch<T>* s;
+  T *cmp, *tau, *fcum, *hist;
+};
+
+template <typename T>
+__device__ __forceinline__ Shared<T> shared_of(unsigned char* raw, int K,
+                                               int batch) {
+  Shared<T> sh;
+  sh.s = reinterpret_cast<Scratch<T>*>(raw);
+  sh.cmp = reinterpret_cast<T*>(raw + sizeof(Scratch<T>));
+  sh.tau = sh.cmp + 6 * K;
+  sh.fcum = sh.tau + batch;
+  sh.hist = sh.fcum + batch;
+  return sh;
+}
+
+template <typename T, bool FB>
+__device__ __forceinline__ LaneIn<T> lane_in(int n, const Dims& d,
+                                             const T* jobs_all,
+                                             const T* rises_all,
+                                             const T* wstab_all,
+                                             const T* prm_all) {
+  LaneIn<T> in;
+  in.jobs = jobs_all + (size_t)n * 3 * d.Jp;
+  in.rise_t = rises_all + (size_t)n * 2 * d.NR;
+  in.rise_v = in.rise_t + d.NR;
+  in.winmax = wstab_all + (size_t)n * 2 * d.NT;
+  in.at_tick = in.winmax + d.NT;
+  const T* prm = prm_all + (size_t)n * (FB ? 2 : 6);
+  in.L = prm[0];
+  in.C = in.B = in.lb_ws = in.U = in.V = in.G = T(0);
+  if (FB) {
+    in.C = prm[1];
+  } else {
+    in.B = prm[1]; in.lb_ws = prm[2]; in.U = prm[3]; in.V = prm[4];
+    in.G = prm[5];
+  }
+  return in;
+}
+
+// Lane n's packed state into the loop scalars (every thread) and this
+// thread's slot.
+template <typename T>
+__device__ __forceinline__ void load_state(int n, int K, const T* sc_in,
+                                           const T* win_in, LaneState<T>& st,
+                                           Slot<T>& w) {
   const int i = threadIdx.x;
-  const T inf = T(INFINITY);
-  const T dur = T(duration);
-  const int n_prm = FB ? 2 : 6;
-  const T* jobs = jobs_all + (size_t)n * 3 * Jp;
-  const T* rise_t = rises_all + (size_t)n * 2 * NR;
-  const T* rise_v = rise_t + NR;
-  const T* winmax = wstab_all + (size_t)n * 2 * NT;
-  const T* at_tick = winmax + NT;
-  const T* prm = prm_all + (size_t)n * n_prm;
   const T* sc = sc_in + (size_t)n * SC_SIZE;
   const T* win = win_in + (size_t)n * WIN_ROWS * K;
-
-  const T L = prm[0];
-  T C = 0, B = 0, lb_ws = 0, U = 0, V = 0, G = 0;
-  if (FB) {
-    C = prm[1];
-  } else {
-    B = prm[1]; lb_ws = prm[2]; U = prm[3]; V = prm[4]; G = prm[5];
-  }
-
-  // Loop scalars, replicated in every thread.
-  T t = sc[SC_T], owned = sc[SC_OWNED], pool = sc[SC_POOL],
-    used = sc[SC_USED], wsv = sc[SC_WSV], alloc_prev = sc[SC_ALLOC_PREV];
-  bool has_queue = sc[SC_HAS_QUEUE] > T(0);
-  int rise_i = (int)sc[SC_RISE_I];
-  int next_row = (int)sc[SC_NEXT_ROW];
-  T acc[N_ACC];
+  st.t = sc[SC_T]; st.owned = sc[SC_OWNED]; st.pool = sc[SC_POOL];
+  st.used = sc[SC_USED]; st.wsv = sc[SC_WSV];
+  st.alloc_prev = sc[SC_ALLOC_PREV];
+  st.has_queue = sc[SC_HAS_QUEUE] > T(0);
+  st.rise_i = (int)sc[SC_RISE_I];
+  st.next_row = (int)sc[SC_NEXT_ROW];
 #pragma unroll
-  for (int a = 0; a < N_ACC; ++a) acc[a] = sc[SC_ACC0 + a];
-
-  Slot<T> w;
+  for (int a = 0; a < N_ACC; ++a) st.acc[a] = sc[SC_ACC0 + a];
   w.valid = i < K;
   if (w.valid) {
     w.sub = win[0 * K + i]; w.sz = win[1 * K + i]; w.rt = win[2 * K + i];
     w.run = win[3 * K + i] > T(0); w.done = win[4 * K + i] > T(0);
     w.st = win[5 * K + i]; w.en = win[6 * K + i];
   } else {
-    w.sub = inf; w.sz = 0; w.rt = 0; w.run = false; w.done = false;
+    w.sub = T(INFINITY); w.sz = 0; w.rt = 0; w.run = false; w.done = false;
     w.st = 0; w.en = 0;
   }
+  w.cls = 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_state(int n, int K, const LaneState<T>& st,
+                                            const Slot<T>& w, T* sc_out,
+                                            T* win_out) {
+  const int i = threadIdx.x;
+  T* sco = sc_out + (size_t)n * SC_SIZE;
+  if (i == 0) {
+    sco[SC_T] = st.t; sco[SC_OWNED] = st.owned; sco[SC_POOL] = st.pool;
+    sco[SC_USED] = st.used; sco[SC_HAS_QUEUE] = st.has_queue ? T(1) : T(0);
+    sco[SC_WSV] = st.wsv; sco[SC_ALLOC_PREV] = st.alloc_prev;
+    sco[SC_RISE_I] = T(st.rise_i); sco[SC_NEXT_ROW] = T(st.next_row);
+#pragma unroll
+    for (int a = 0; a < N_ACC; ++a) sco[SC_ACC0 + a] = st.acc[a];
+  }
+  if (w.valid) {
+    T* wo = win_out + (size_t)n * WIN_ROWS * K;
+    wo[0 * K + i] = w.sub; wo[1 * K + i] = w.sz; wo[2 * K + i] = w.rt;
+    wo[3 * K + i] = w.run ? T(1) : T(0); wo[4 * K + i] = w.done ? T(1) : T(0);
+    wo[5 * K + i] = w.st; wo[6 * K + i] = w.en;
+  }
+}
+
+// One outer step of one lane, the body both entries share: compaction,
+// admission, size classes and d.rounds event rounds. Every branch around
+// a barrier reads only loop scalars, so it is taken alike in every
+// thread of the block.
+template <typename T, bool FB, bool COAL>
+__device__ __forceinline__ void outer_step(const Dims& d, const LaneIn<T>& in,
+                                           T dur, LaneState<T>& st,
+                                           Slot<T>& w, const Shared<T>& sh) {
+  const int K = d.K, Jp = d.Jp, NR = d.NR, NT = d.NT, rounds = d.rounds,
+            ff_passes = d.ff_passes, batch = d.batch;
+  Scratch<T>& s = *sh.s;
+  T* const cmp = sh.cmp;
+  T* const tau = sh.tau;
+  T* const fcum = sh.fcum;
+  T* const hist = sh.hist;
+  const int i = threadIdx.x;
+  const T inf = T(INFINITY);
+  const T* const jobs = in.jobs;
+  const T* const rise_t = in.rise_t;
+  const T* const rise_v = in.rise_v;
+  const T* const winmax = in.winmax;
+  const T* const at_tick = in.at_tick;
+  const T L = in.L, C = in.C, B = in.B, lb_ws = in.lb_ws, U = in.U,
+          V = in.V, G = in.G;
+  T& t = st.t;
+  T& owned = st.owned;
+  T& pool = st.pool;
+  T& used = st.used;
+  T& wsv = st.wsv;
+  T& alloc_prev = st.alloc_prev;
+  bool& has_queue = st.has_queue;
+  int& rise_i = st.rise_i;
+  int& next_row = st.next_row;
+  T* const acc = st.acc;
 
   // --- stable compaction of the done slots: kept slots move to the head
   // in slot order, the tail takes the fills, then reads the next rows.
@@ -640,57 +744,123 @@ __global__ void chunk_kernel(int K, int Jp, int NR, int NT, int rounds,
     t = b;
     alloc_prev = integrand;
   }
+}
 
-  T* sco = sc_out + (size_t)n * SC_SIZE;
-  if (i == 0) {
-    sco[SC_T] = t; sco[SC_OWNED] = owned; sco[SC_POOL] = pool;
-    sco[SC_USED] = used; sco[SC_HAS_QUEUE] = has_queue ? T(1) : T(0);
-    sco[SC_WSV] = wsv; sco[SC_ALLOC_PREV] = alloc_prev;
-    sco[SC_RISE_I] = T(rise_i); sco[SC_NEXT_ROW] = T(next_row);
-#pragma unroll
-    for (int a = 0; a < N_ACC; ++a) sco[SC_ACC0 + a] = acc[a];
+template <typename T, bool FB, bool COAL>
+__global__ void chunk_kernel(Dims d, double duration,
+                             const T* __restrict__ jobs_all,
+                             const T* __restrict__ rises_all,
+                             const T* __restrict__ wstab_all,
+                             const T* __restrict__ prm_all,
+                             const T* __restrict__ sc_in,
+                             const T* __restrict__ win_in,
+                             T* __restrict__ sc_out,
+                             T* __restrict__ win_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = blockIdx.x;
+  const LaneIn<T> in =
+      lane_in<T, FB>(n, d, jobs_all, rises_all, wstab_all, prm_all);
+  LaneState<T> st;
+  Slot<T> w;
+  load_state(n, d.K, sc_in, win_in, st, w);
+  outer_step<T, FB, COAL>(d, in, T(duration), st, w,
+                          shared_of<T>(smem_raw, d.K, d.batch));
+  store_state(n, d.K, st, w, sc_out, win_out);
+}
+
+// The whole outer loop of lane n in one block: the lane's predicate
+// (it < outer_max) & (t < duration), the reference's while_loop test, is
+// read from loop scalars that every thread holds alike, so the block
+// leaves the loop as one. A lane that fails it keeps its state, as the
+// host loop's freeze would. steps[n] gets the lane's outer-step count.
+// The compaction buffer is rewritten by the next step only after the
+// two barriers of that step's first scan, so its reads are done.
+template <typename T, bool FB, bool COAL>
+__global__ void run_kernel(Dims d, int outer_max, double duration,
+                           const T* __restrict__ jobs_all,
+                           const T* __restrict__ rises_all,
+                           const T* __restrict__ wstab_all,
+                           const T* __restrict__ prm_all,
+                           const T* __restrict__ sc_in,
+                           const T* __restrict__ win_in,
+                           T* __restrict__ sc_out, T* __restrict__ win_out,
+                           int* __restrict__ steps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = blockIdx.x;
+  const LaneIn<T> in =
+      lane_in<T, FB>(n, d, jobs_all, rises_all, wstab_all, prm_all);
+  const Shared<T> sh = shared_of<T>(smem_raw, d.K, d.batch);
+  const T dur = T(duration);
+  LaneState<T> st;
+  Slot<T> w;
+  load_state(n, d.K, sc_in, win_in, st, w);
+  int it = 0;
+  while (it < outer_max && st.t < dur) {
+    outer_step<T, FB, COAL>(d, in, dur, st, w, sh);
+    ++it;
   }
-  if (w.valid) {
-    T* wo = win_out + (size_t)n * WIN_ROWS * K;
-    wo[0 * K + i] = w.sub; wo[1 * K + i] = w.sz; wo[2 * K + i] = w.rt;
-    wo[3 * K + i] = w.run ? T(1) : T(0); wo[4 * K + i] = w.done ? T(1) : T(0);
-    wo[5 * K + i] = w.st; wo[6 * K + i] = w.en;
-  }
+  store_state(n, d.K, st, w, sc_out, win_out);
+  if (threadIdx.x == 0) steps[n] = it;
 }
 
 struct LaunchArgs {
-  int n_lanes, K, Jp, NR, NT, rounds, ff_passes, batch;
+  int n_lanes;
+  Dims d;
+  int outer_max;   // run_kernel only
   double duration;
   const void *jobs, *rises, *wstab, *prm, *sc_in, *win_in;
   void *sc_out, *win_out;
+  int* steps;      // run_kernel only
   cudaStream_t stream;
 };
 
-template <typename T, bool FB, bool COAL>
+// RUN: the whole outer loop (run_kernel), else one outer step
+// (chunk_kernel).
+template <typename T, bool FB, bool COAL, bool RUN>
 cudaError_t launch(const LaunchArgs& a) {
-  const int threads = ((a.K + 31) / 32) * 32;
-  const size_t smem = sizeof(Scratch<T>) + 6 * (size_t)a.K * sizeof(T)
-                      + (COAL ? 3 * (size_t)a.batch * sizeof(T) : 0);
+  const int threads = ((a.d.K + 31) / 32) * 32;
+  const size_t smem = sizeof(Scratch<T>) + 6 * (size_t)a.d.K * sizeof(T)
+                      + (COAL ? 3 * (size_t)a.d.batch * sizeof(T) : 0);
+  const void* fn = RUN ? (const void*)run_kernel<T, FB, COAL>
+                       : (const void*)chunk_kernel<T, FB, COAL>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chunk_kernel<T, FB, COAL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  chunk_kernel<T, FB, COAL><<<a.n_lanes, threads, smem, a.stream>>>(
-      a.K, a.Jp, a.NR, a.NT, a.rounds, a.ff_passes, a.batch, a.duration,
-      static_cast<const T*>(a.jobs), static_cast<const T*>(a.rises),
-      static_cast<const T*>(a.wstab), static_cast<const T*>(a.prm),
-      static_cast<const T*>(a.sc_in), static_cast<const T*>(a.win_in),
-      static_cast<T*>(a.sc_out), static_cast<T*>(a.win_out));
+  const T* jobs = static_cast<const T*>(a.jobs);
+  const T* rises = static_cast<const T*>(a.rises);
+  const T* wstab = static_cast<const T*>(a.wstab);
+  const T* prm = static_cast<const T*>(a.prm);
+  const T* sc_in = static_cast<const T*>(a.sc_in);
+  const T* win_in = static_cast<const T*>(a.win_in);
+  T* sc_out = static_cast<T*>(a.sc_out);
+  T* win_out = static_cast<T*>(a.win_out);
+  if constexpr (RUN)
+    run_kernel<T, FB, COAL><<<a.n_lanes, threads, smem, a.stream>>>(
+        a.d, a.outer_max, a.duration, jobs, rises, wstab, prm, sc_in,
+        win_in, sc_out, win_out, a.steps);
+  else
+    chunk_kernel<T, FB, COAL><<<a.n_lanes, threads, smem, a.stream>>>(
+        a.d, a.duration, jobs, rises, wstab, prm, sc_in, win_in, sc_out,
+        win_out);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool RUN>
 cudaError_t dispatch(int policy, const LaunchArgs& a) {
-  if (a.batch > 1)
-    return policy == 0 ? launch<T, true, true>(a) : launch<T, false, true>(a);
-  return policy == 0 ? launch<T, true, false>(a) : launch<T, false, false>(a);
+  if (a.d.batch > 1)
+    return policy == 0 ? launch<T, true, true, RUN>(a)
+                       : launch<T, false, true, RUN>(a);
+  return policy == 0 ? launch<T, true, false, RUN>(a)
+                     : launch<T, false, false, RUN>(a);
+}
+
+cudaError_t check_args(int K, int Jp, int NR, int NT, int batch) {
+  if (K < 1 || K > 1024 || Jp < K || NR < 1 || NT < 1 || batch < 1 ||
+      batch > K)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // Cost probe for the serial chain: `steps` dependent block-wide sums (the
@@ -708,7 +878,8 @@ __global__ void chain_probe_kernel(int steps, T* __restrict__ out) {
 }  // namespace
 
 // policy: 0 = FB, 1 = FLB-NUB; batch: the coalescing batch in [1, K]
-// (1 = off). Returns the cudaError_t of the launch.
+// (1 = off). One outer step of every lane. Returns the cudaError_t of the
+// launch.
 extern "C" int round_step_chunk(int policy, int is_f64, int n_lanes, int K,
                                 int Jp, int NR, int NT, int rounds,
                                 int ff_passes, int batch, double duration,
@@ -717,14 +888,36 @@ extern "C" int round_step_chunk(int policy, int is_f64, int n_lanes, int K,
                                 const void* sc_in, const void* win_in,
                                 void* sc_out, void* win_out, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (K < 1 || K > 1024 || Jp < K || NR < 1 || NT < 1 || batch < 1 ||
-      batch > K)
-    return (int)cudaErrorInvalidValue;
-  const LaunchArgs a{n_lanes, K, Jp, NR, NT, rounds, ff_passes, batch,
-                     duration, jobs, rises, wstab, prm, sc_in, win_in,
-                     sc_out, win_out, static_cast<cudaStream_t>(stream)};
-  return (int)(is_f64 ? dispatch<double>(policy, a)
-                      : dispatch<float>(policy, a));
+  const cudaError_t bad = check_args(K, Jp, NR, NT, batch);
+  if (bad != cudaSuccess) return (int)bad;
+  const LaunchArgs a{n_lanes, Dims{K, Jp, NR, NT, rounds, ff_passes, batch},
+                     0, duration, jobs, rises, wstab, prm, sc_in, win_in,
+                     sc_out, win_out, nullptr,
+                     static_cast<cudaStream_t>(stream)};
+  return (int)(is_f64 ? dispatch<double, false>(policy, a)
+                      : dispatch<float, false>(policy, a));
+}
+
+// The same, but every lane runs outer steps until its predicate
+// (steps < outer_max) & (t < duration) fails, all in one launch; steps
+// (n_lanes int32) gets each lane's outer-step count.
+extern "C" int round_step_run(int policy, int is_f64, int n_lanes, int K,
+                              int Jp, int NR, int NT, int rounds,
+                              int ff_passes, int batch, int outer_max,
+                              double duration, const void* jobs,
+                              const void* rises, const void* wstab,
+                              const void* prm, const void* sc_in,
+                              const void* win_in, void* sc_out,
+                              void* win_out, void* steps, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const cudaError_t bad = check_args(K, Jp, NR, NT, batch);
+  if (bad != cudaSuccess) return (int)bad;
+  const LaunchArgs a{n_lanes, Dims{K, Jp, NR, NT, rounds, ff_passes, batch},
+                     outer_max, duration, jobs, rises, wstab, prm, sc_in,
+                     win_in, sc_out, win_out, static_cast<int*>(steps),
+                     static_cast<cudaStream_t>(stream)};
+  return (int)(is_f64 ? dispatch<double, true>(policy, a)
+                      : dispatch<float, true>(policy, a));
 }
 
 // `threads` must be a multiple of 32 in [32, 1024]; `out` holds

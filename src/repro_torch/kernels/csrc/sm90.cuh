@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the attention kernels, as inline
 // PTX: cp.async with zero fill, the 128-byte shared-memory swizzle and
-// the wgmma matrix descriptor that names it, and bfloat16 wgmma
-// m64n64k16 (A from shared memory or from registers, float32
-// accumulators).
+// the wgmma matrix descriptor that names it, bfloat16 wgmma m64n64k16
+// (A from shared memory or from registers), TF32 wgmma m64n32k8 (both
+// operands from shared memory) and m64n64k8 (A from registers), and the
+// float32 -> TF32 rounding; float32 accumulators throughout.
 
 #pragma once
 
@@ -86,6 +87,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
@@ -141,4 +147,63 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------- TF32
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),
+// as the bits of a float32 whose low 13 bits are 0: what a TF32 wgmma
+// operand holds exactly.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 32, float32) = A (64 x 8) * B (8 x 32) [+ d if accumulate],
+// A and B TF32 in shared memory, both K-major (the only layout TF32
+// takes: no transpose bit). The accumulator layout is wgmma_ss's: d[4n +
+// e] at row 16w + l / 4 + 8 (e / 2), column 8n + 2 (l % 4) + e % 2.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, float32) = A (64 x 8) * B (8 x 64) [+ d if accumulate], A
+// TF32 in registers (each warp's 16 rows: a[0] row l / 4 column l % 4,
+// a[1] the same column 8 rows below, a[2] / a[3] those two 4 columns to
+// the right), B TF32 in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }

@@ -38,7 +38,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (BH, Sq, hd); k/v (BKV, Skv, hd), BH = BKV·G with consecutive G
     rows of q sharing one kv row. Query row i sits at absolute position
     ``q_offset + i``; key j is visible iff (causal) j <= that position
-    and (window) j > that position - window."""
+    and (window) j > that position - window. A row with no visible key
+    is 0."""
     bh, sq, hd = q.shape
     bkv, skv, _ = k.shape
     g = bh // bkv
@@ -53,7 +54,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask &= cols > rows - window
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    # A masked key's weight is already exactly 0 beside a visible key;
+    # zeroing it makes a row that sees no key (possible only with
+    # ``q_offset``) 0, as the CUDA kernels write it, not the mean of V.
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
     out = torch.einsum("bgst,btd->bgsd", p, v.float())
     return out.reshape(bh, sq, hd).to(q.dtype)
 
@@ -64,7 +68,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      softcap: Optional[float] = None) -> torch.Tensor:
     """q (BKV, G, hd) one token per row group; k/v (BKV, S, hd); ``pos``
     the scalar write position (int or 0-d tensor). Key j is visible iff
-    j <= pos, j < S and (window) j > pos - window."""
+    j <= pos, j < S and (window) j > pos - window; with no visible key
+    the output is 0."""
     bkv, g, hd = q.shape
     s_len = k.shape[1]
     qs = q.float() * (1.0 / math.sqrt(hd))
@@ -76,7 +81,10 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         valid &= cols > pos - window
     s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    # Zero weight at invalid keys, as the Pallas kernel zeroes V there:
+    # with no visible key (pos < 0, or every key left of the window) the
+    # output is 0, not the mean of V; otherwise nothing changes.
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
     out = torch.einsum("bgt,btd->bgd", p, v.float())
     return out.to(q.dtype)
 

@@ -5,10 +5,14 @@ One outer step of ``repro_torch.sim.rounds`` — stable compaction of the
 done window lanes, admission of the next job-table rows, the power-of-two
 size classes and ``compact_every`` event rounds (first-fit, §5.1 kills
 for FB, §5.2 U/V/G at ticks for FLB-NUB, and with ``spec.batch > 1`` the
-contended-stretch coalescer) — runs as ONE launch for every
-(point × trace) lane: one thread block per lane, one thread per window
-slot (``csrc/round_step.cu``). It replaces the Pallas kernel
-``repro.kernels.round_step.chunk_step`` of the JAX package.
+contended-stretch coalescer) — runs in ``csrc/round_step.cu`` with one
+thread block per (point × trace) lane and one thread per window slot.
+It replaces the Pallas kernel ``repro.kernels.round_step.chunk_step`` of
+the JAX package. :func:`run_rounds` runs every lane's whole outer loop in
+ONE launch (each block loops its own lane until the engine's predicate
+fails, as the JAX package's ``while_loop`` does on the device); that is
+the engine's path. :func:`chunk_step` runs one outer step per launch,
+for comparing the kernel with its plain version after every step.
 
 State layout (the JAX package's, so the two pack and unpack alike):
 ``sc`` (N, ``SC_SIZE``) holds the nine loop scalars followed by the eleven
@@ -21,10 +25,13 @@ B, lb_ws, U, V, G). The pack is exact for every field: flags are 0/1 and
 the two int cursors stay far below 2**24.
 
 :func:`chunk_step_ref` is the plain version: unpack → the engine's own
-``_chunk_core`` → pack. :func:`chunk_step` launches the kernel on CUDA
-tensors and counts each launch in ``chunk_step.launches``; it raises on
-CPU tensors (there is no kernel for the CPU: ``RoundsSpec.kernel``
-chooses the plain version there).
+``_chunk_core`` → pack. :func:`chunk_step` and :func:`run_rounds` launch
+the kernel on CUDA tensors and count each launch in their ``launches``;
+they raise on CPU tensors (there is no kernel for the CPU:
+``RoundsSpec.kernel`` chooses the plain version there).
+:func:`outer_steps` reads the outer steps the ``run_rounds`` launches
+made (the largest lane count of each, summed): the launches the
+one-step path would have made for the same work.
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ from repro_torch.sim import rounds as _rounds
 from repro_torch.sim.rounds import ACC_KEYS, RoundsSpec
 
 __all__ = ["SC_SIZE", "WIN_ROWS", "pack_carry", "unpack_carry",
-           "lane_inputs", "chunk_step", "chunk_step_ref", "build",
-           "chain_barriers", "chain_probe"]
+           "lane_inputs", "chunk_step", "chunk_step_ref", "run_rounds",
+           "outer_steps", "zero_outer_steps", "build", "chain_barriers",
+           "chain_probe"]
 
 # ----------------------------------------------------------- state layout
 
@@ -164,6 +172,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
+    run = lib.round_step_run
+    run.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_double]
+                    + [ctypes.c_void_p] * 10)
+    run.restype = ctypes.c_int
     lib.round_step_error_string.argtypes = [ctypes.c_int]
     lib.round_step_error_string.restype = ctypes.c_char_p
     probe = lib.round_step_chain_probe
@@ -236,6 +248,61 @@ def chunk_step(jobs, rises, wstab, prm, sc, win, *, policy: str,
 
 
 chunk_step.launches = 0
+
+# Per device: the outer steps of the run_rounds launches (the largest
+# lane count of each launch, summed on the device, so counting needs no
+# host sync).
+_OUTER_STEPS: Dict[torch.device, torch.Tensor] = {}
+
+
+def run_rounds(jobs, rises, wstab, prm, sc, win, *, policy: str,
+               spec: RoundsSpec, outer_max: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every lane's whole outer loop as ONE kernel launch: each block
+    runs outer steps of its lane (those of :func:`chunk_step`) while
+    ``(steps < outer_max) & (t < spec.duration)``, the engine's per-lane
+    predicate, and a lane that fails it keeps its state. Returns the
+    final ``(sc, win)`` and each lane's outer-step count (int32, on the
+    device). The inputs come from :func:`lane_inputs`; the tensors must
+    lie on a CUDA device, where the kernel runs or this raises."""
+    _check_state(jobs, sc, win, spec)
+    lib = _library()
+    sc_out = torch.empty_like(sc)
+    win_out = torch.empty_like(win)
+    steps = torch.empty(sc.shape[0], dtype=torch.int32, device=sc.device)
+    stream = torch.cuda.current_stream(sc.device).cuda_stream
+    err = lib.round_step_run(
+        0 if policy == "fb" else 1, int(sc.dtype == torch.float64),
+        sc.shape[0], win.shape[-1], jobs.shape[-1], rises.shape[-1],
+        wstab.shape[-1], spec.compact_every, spec.ff_passes, _batch(spec),
+        int(outer_max), float(spec.duration), jobs.data_ptr(),
+        rises.data_ptr(), wstab.data_ptr(), prm.data_ptr(), sc.data_ptr(),
+        win.data_ptr(), sc_out.data_ptr(), win_out.data_ptr(),
+        steps.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("round_step kernel launch failed: "
+                           + lib.round_step_error_string(err).decode())
+    run_rounds.launches += 1
+    if sc.shape[0]:
+        total = _OUTER_STEPS.setdefault(
+            sc.device, torch.zeros((), dtype=torch.int64, device=sc.device))
+        total += steps.max()
+    return sc_out, win_out, steps
+
+
+run_rounds.launches = 0
+
+
+def outer_steps() -> int:
+    """The outer steps :func:`run_rounds` has run since the last
+    :func:`zero_outer_steps`: per launch the count of its busiest lane,
+    summed (it synchronises with the devices)."""
+    return sum(int(v) for v in _OUTER_STEPS.values())
+
+
+def zero_outer_steps() -> None:
+    for v in _OUTER_STEPS.values():
+        v.zero_()
 
 
 # ------------------------------------------------- the serial chain's cost

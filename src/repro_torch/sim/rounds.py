@@ -18,14 +18,15 @@ What differs is the form:
 * Lanes are a written-out leading tensor axis. The (trace × point) grid
   flattens to ``N = W·P`` lanes, every loop scalar is an ``(N,)`` tensor
   and every window an ``(N, K)`` tensor.
-* The outer loop is a Python loop. Like a batched ``while_loop`` it
-  FREEZES a lane once its own predicate ``(i < outer_max) & (t <
-  duration)`` fails: the step runs on every lane and only the lanes
-  whose predicate holds take the new state.
-* The outer step runs through ``repro_torch.kernels.round_step``:
-  ``RoundsSpec.kernel="cuda"`` launches the hand-written CUDA kernel,
-  ``"torch"`` runs the plain version. ``None`` picks ``"cuda"`` on a
-  CUDA device and ``"torch"`` on the CPU.
+* The outer loop runs through ``repro_torch.kernels.round_step``. Like
+  a batched ``while_loop`` each lane stops once its own predicate ``(i
+  < outer_max) & (t < duration)`` fails. ``RoundsSpec.kernel="cuda"``
+  runs the whole loop in one launch of the hand-written CUDA kernel,
+  each thread block looping its own lane on the device; ``"torch"``
+  runs a Python loop over the plain step, which runs on every lane and
+  lets only the lanes whose predicate holds take the new state.
+  ``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the
+  CPU.
 * Where the reference multiplies a 0/1 mask into a difference of times
   (``cmp_f * (end_t - w_sub)``), this module selects instead: a pad
   lane's ``0 - inf`` would otherwise turn the sum into NaN. XLA rewrites
@@ -749,30 +750,37 @@ def _startup(policy: str, ctx: Dict, spec: RoundsSpec, ws0):
 def _simulate_rounds(policy: str, prm: Dict, pk: PackedEventWorkloads,
                      spec: RoundsSpec) -> Dict[str, torch.Tensor]:
     """Every (point, workload) lane of ``prm`` at once (see
-    :func:`_lane_ctx` for ``prm``). The outer step runs through the
-    round-step kernel (``spec.kernel``) on the packed state; a lane
-    freezes once its own predicate ``(i < outer_max) & (t < duration)``
-    fails, exactly like a batched ``while_loop``."""
+    :func:`_lane_ctx` for ``prm``). A lane runs outer steps while its
+    own predicate ``(i < outer_max) & (t < duration)`` holds, like a
+    batched ``while_loop``: with ``spec.kernel`` "cuda" the round-step
+    kernel runs every lane's whole loop in one launch
+    (``round_step.run_rounds``); with "torch" a host loop steps the
+    plain version over the packed state and freezes each lane once its
+    predicate fails."""
     from repro_torch.kernels import round_step as rsk
     kernel = spec.resolve_kernel(pk.device)
-    step = rsk.chunk_step if kernel == "cuda" else rsk.chunk_step_ref
     ctx = _lane_ctx(policy, prm, pk)
     f = pk.submit.dtype
     w_idx, p_idx = prm["w_idx"], prm["p_idx"]
     sc, win = _startup(policy, ctx, spec, pk.ws0[w_idx])
     jobs, rises, wstab, prmv = rsk.lane_inputs(policy, ctx)
     outer_max = -(-spec.max_rounds // spec.compact_every)
-    i = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
     dur = torch.tensor(spec.duration, dtype=f, device=sc.device)
-    while True:
-        live = (i < outer_max) & (sc[:, rsk.SC_T] < dur)
-        if not bool(live.any()):
-            break
-        sc_n, win_n = step(jobs, rises, wstab, prmv, sc, win,
-                           policy=policy, spec=spec)
-        sc = torch.where(live[:, None], sc_n, sc)
-        win = torch.where(live[:, None, None], win_n, win)
-        i = i + live.to(torch.int32)
+    if kernel == "cuda":
+        sc, win, _ = rsk.run_rounds(jobs, rises, wstab, prmv, sc, win,
+                                    policy=policy, spec=spec,
+                                    outer_max=outer_max)
+    else:
+        i = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
+        while True:
+            live = (i < outer_max) & (sc[:, rsk.SC_T] < dur)
+            if not bool(live.any()):
+                break
+            sc_n, win_n = rsk.chunk_step_ref(jobs, rises, wstab, prmv, sc,
+                                             win, policy=policy, spec=spec)
+            sc = torch.where(live[:, None], sc_n, sc)
+            win = torch.where(live[:, None, None], win_n, win)
+            i = i + live.to(torch.int32)
     t_end = sc[:, rsk.SC_T]
     acc = {k: sc[:, rsk.SC_ACC0 + j] for j, k in enumerate(ACC_KEYS)}
     n_done = torch.clamp_min(acc["completed"], 1.0)

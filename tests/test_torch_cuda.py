@@ -5,7 +5,9 @@ each test): there the wrappers build their ``csrc/*.cu`` sources with
 nvcc and launch them. The round step's state after every chunk must
 equal ``chunk_step_ref`` on the same CUDA tensors, exactly except the
 three time integrals (rtol 1e-5 float32, 1e-6 float64), with the
-contended-stretch coalescer off and on (batch 1 and 8); the flash
+contended-stretch coalescer off and on (batch 1 and 8), and the
+one-launch loop (``run_rounds``) must equal the per-chunk kernel path
+bit for bit; the flash
 attention and flash decode kernels must match ``kernels.ref`` (see the
 tolerances below), and a reduced model's kernel path its plain path.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
@@ -127,6 +129,107 @@ def test_coalescer_defers_at_theta_on_the_card():
                and float(a[0, rsk.SC_T]) < duration]
         assert cut and all(t % rt == 0 for t in cut), cut
         assert len(steps) <= -(-n // rounds.COALESCE_BATCH)
+
+
+def _run_against_chunks(policy, grid, pk, spec, outer_max):
+    """The engine's one-launch loop (``run_rounds``) against the
+    per-chunk kernel path from the same startup state: the per-chunk
+    path steps every lane with ``chunk_step`` and freezes a lane once
+    ``(i < outer_max) & (t < duration)`` fails. Returns both final
+    states and step counts."""
+    prm = rounds._rounds_prm_tree(policy, grid, 1)
+    ctx = rounds._lane_ctx(policy, prm, pk)
+    sc0, win0 = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
+    inputs = rsk.lane_inputs(policy, ctx)
+    sc, win = sc0, win0
+    i = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
+    dur = torch.tensor(spec.duration, dtype=sc.dtype, device=sc.device)
+    while True:
+        live = (i < outer_max) & (sc[:, rsk.SC_T] < dur)
+        if not bool(live.any()):
+            break
+        sc_n, win_n = rsk.chunk_step(*inputs, sc, win, policy=policy,
+                                     spec=spec)
+        sc = torch.where(live[:, None], sc_n, sc)
+        win = torch.where(live[:, None, None], win_n, win)
+        i = i + live.to(torch.int32)
+    launches = rsk.run_rounds.launches
+    rsk.zero_outer_steps()
+    got = rsk.run_rounds(*inputs, sc0, win0, policy=policy, spec=spec,
+                         outer_max=outer_max)
+    torch.cuda.synchronize()
+    assert rsk.run_rounds.launches == launches + 1
+    assert rsk.outer_steps() == int(i.max())
+    return got, (sc, win, i)
+
+
+@pytest.mark.parametrize("outer_max", [None, 7])
+@pytest.mark.parametrize("batch", [1, rounds.COALESCE_BATCH])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("policy", ["fb", "flb_nub"])
+def test_one_launch_run_equals_the_per_chunk_path_on_the_card(
+        policy, dtype, batch, outer_max):
+    """Every field bit for bit, the three integrals too (the same
+    arithmetic per step), and the per-lane outer-step counts; with
+    outer_max 7 the round budget, not the horizon, stops the lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    horizon = 2 * DAY
+    jobs = [j for j in traces.nasa_ipsc(seed=0) if j.submit < horizon]
+    ws = [(t, d) for t, d in traces.worldcup98(seed=0, peak_vms=128)
+          if t < horizon]
+    points = [p for p in paper_grid(128) if p.system == policy]
+    opts = ScanOptions(dtype=np.float64 if dtype == torch.float64 else None,
+                       coalesce=batch)
+    (_, _, fb, flb, fb_packs, flb_packs, fb_spec, flb_spec) = _pack_rounds(
+        points, [(jobs, ws)], horizon, opts, dev)
+    grid, pk, spec = ((fb, fb_packs[0], fb_spec) if policy == "fb"
+                      else (flb, flb_packs[0], flb_spec))
+    full = -(-spec.max_rounds // spec.compact_every)
+    (sc, win, steps), (sc_c, win_c, steps_c) = _run_against_chunks(
+        policy, grid, pk, spec, full if outer_max is None else outer_max)
+    assert torch.equal(sc, sc_c) and torch.equal(win, win_c)
+    assert torch.equal(steps, steps_c)
+    if outer_max is None:
+        assert bool((sc[:, rsk.SC_T] >= horizon).all())
+        assert int(steps.max()) > 20
+    else:
+        assert int(steps.max()) == outer_max
+        assert bool((sc[:, rsk.SC_T] < horizon).any())
+
+
+def test_rounds_grids_launch_once_per_policy_on_the_card():
+    """The engine on the card: one run_rounds launch per policy, no
+    per-chunk launch, and the metrics of the plain host loop (exact
+    except the three integrals' rows, rtol 1e-5 in float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    horizon = 2 * DAY
+    jobs = [j for j in traces.sdsc_blue(seed=0) if j.submit < horizon]
+    ws = [(t, d) for t, d in traces.worldcup98(seed=0, peak_vms=128)
+          if t < horizon]
+    points = [p for p in paper_grid(128) if p.system in ("fb", "flb_nub")]
+    outs = []
+    for kernel in ("cuda", "torch"):
+        opts = ScanOptions(kernel=kernel)
+        (_, _, fb, flb, fb_packs, flb_packs, fb_spec,
+         flb_spec) = _pack_rounds(points, [(jobs, ws)], horizon, opts, dev)
+        chunks, runs = rsk.chunk_step.launches, rsk.run_rounds.launches
+        outs.append(rounds.rounds_grids(fb, flb, fb_packs[0], flb_packs[0],
+                                        fb_spec=fb_spec, flb_spec=flb_spec))
+        torch.cuda.synchronize()
+        assert rsk.chunk_step.launches == chunks
+        assert rsk.run_rounds.launches - runs == (2 if kernel == "cuda"
+                                                  else 0)
+    for policy in ("fb", "flb_nub"):
+        for key, got in outs[0][policy].items():
+            want = outs[1][policy][key]
+            if key in ("avg_turnaround", "avg_execution", "node_hours"):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+            else:
+                assert torch.equal(got, want), (policy, key)
 
 
 # ------------------------------------------- attention kernels on the card
@@ -281,6 +384,52 @@ def test_flash_decode_with_no_visible_key_writes_zeros_on_the_card(pos,
     torch.cuda.synchronize()
     assert bool((got == 0).all())
     assert int(fdk._counters(torch.cuda.current_stream(dev)).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("pos,window", [(-1, None), (400, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_with_no_visible_key_equals_plain_on_the_card(
+        pos, window, dtype):
+    """q (2, 2, 64), S 256: before the cache, or every key left of the
+    window; the kernel and the plain version both give zeros."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_decode as fdk
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(2, 2, 64, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(2, 256, 64, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    at = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = fdk.flash_decode_bkv(q, k, v, at, window=window)
+    want = ref.flash_decode_ref(q, k, v, at, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_with_no_visible_key_are_zero_on_the_card(
+        dtype, causal):
+    """q at an offset past the keys with a window: rows from position
+    163 on see no key (all keys left of their window) and are 0 in the
+    kernel and the plain version; the rows before them match."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bkv
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(4, 70, 64, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(2, 100, 64, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=64, softcap=50.0, q_offset=130)
+    got = flash_attention_bkv(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bool((want[:, 163 - 130:] == 0).all())
+    assert bool((got[:, 163 - 130:] == 0).all())
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),

@@ -86,23 +86,29 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    against its plain version (elementwise atol + rtol,
                    stated per dtype); at L 512 also against the
                    token-by-token recurrence; device times of both
-                   (CUDA events, calls queued behind a spin) and the
-                   bound
+                   (CUDA events, calls queued behind a spin), the kernel
+                   launches per call (a profiler trace; must be 1), the
+                   bound (tensor cores: float32 at the 3 x TF32 rate,
+                   with the CUDA cores' beside it) and, without a start
+                   state, the chain's cost: the call's time less that of
+                   the same chunks as rows of one chunk each
   serve_mamba      mamba2-130m at full width, float32: AutoscaledService
                    of Replicas sharing one Model, 8 requests of
                    512-4096 prompt tokens; all complete, 24 SSD launches
                    per admission, each admission's logits and SSM state
-                   equal a plain prefill's
+                   equal a plain prefill's; the longest prefill's device
+                   split (SSD kernel ms)
   generate_mamba   mamba2-130m, bfloat16: batch-8 prefill of 4096 tokens
                    (24 SSD launches), 32 decode steps (plain tensor code,
                    as in the reference), teacher-forced against the plain
                    route (logits within 0.25, argmax agreement at least
-                   0.9)
+                   0.9); the prefill's device split (SSD kernel ms)
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba), times,
                    bound; attention and decode one row per dtype on its
                    path (flash_attention_f32: serve, flash_attention_bf16
-                   and flash_decode_bf16: generate); round_step per
+                   and flash_decode_bf16: generate; ssd_scan_bf16:
+                   generate_mamba, ssd_scan_f32: serve_mamba); round_step per
                    one-launch run of the sweep, with its outer steps, the
                    one-step entry's time per launch and the same for the
                    coalesced sweep
@@ -486,15 +492,15 @@ KERNEL_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 1e-2)}
 # it. The plain version without the cap must fail the tolerance there,
 # so a kernel that skipped the cap would too.
 CAP_Q_SCALE = 40.0
-# Peak rates for the bound (H100 SXM data sheet, 700 W). Attention runs
-# on the tensor cores: bfloat16 at the dense rate (989 TFLOP/s), float32
-# as three TF32 products per float32 product at the dense TF32 rate
-# (495 TFLOP/s), a third of that in counted work; its cases also report
-# the CUDA cores' float32 rate (67 TFLOP/s), the bound of the first
-# port's kernel. Decode and the SSD scan compute float32 on the CUDA
-# cores.
+# Peak rates for the bound (H100 SXM data sheet, 700 W). Attention and
+# the SSD scan run on the tensor cores: bfloat16 at the dense rate (989
+# TFLOP/s), float32 as three TF32 products per float32 product at the
+# dense TF32 rate (495 TFLOP/s), a third of that in counted work; their
+# float32 cases also report the CUDA cores' float32 rate (67 TFLOP/s),
+# the bound of the port's first kernels. Decode computes float32 on the
+# CUDA cores.
 CUDA_CORE_FLOPS = 67e12
-ATTN_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+TENSOR_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 CORE_PEAK_FLOPS = {torch.float32: CUDA_CORE_FLOPS, torch.bfloat16: 989e12}
 ATTN_SEQS = (8192, 4600)          # 4600: ragged (not a multiple of 64)
 ATTN_WINDOWS = (4096, None)       # gemma2's local and global layers
@@ -616,7 +622,7 @@ def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0, batch=1):
     pairs = visible_pairs(s, window)
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())
     flops = 4 * hd * pairs * h
-    bound_ms, bound_by = bound(nbytes, flops, ATTN_PEAK_FLOPS[dtype])
+    bound_ms, bound_by = bound(nbytes, flops, TENSOR_PEAK_FLOPS[dtype])
     if dtype == torch.float32:
         core_ms = 1e3 * flops / CUDA_CORE_FLOPS
         check.update(cuda_core_bound_ms=core_ms,
@@ -820,6 +826,33 @@ def breakdown(fn, sum_of=None):
                    for key, part in (sum_of or {}).items()})
 
 
+def kernel_launches(fn, part, calls=3, tries=5):
+    """Device kernels whose name holds ``part`` per call of ``fn``, from a
+    ``torch.profiler`` trace of host and device over ``calls`` calls, as
+    ``breakdown`` takes it. A trace that holds no device kernel at all
+    (now and then one does on an H100) is taken again, up to ``tries``
+    times; then the count was not measured, and this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        if events:
+            return sum(ev.count for ev in events if part in ev.key) / calls
+    raise AssertionError(f"{tries} profiler traces of {calls} calls held no "
+                         f"device kernel: the launches were not counted")
+
+
+# The prefill profiles' device ms of the model kernels, by name part.
+PREFILL_KERNELS = {"flash_attention_ms": "flash_fwd", "ssd_scan_ms": "ssd_"}
+
+
 def ssm_states(cache):
     """The Mamba layers' SSM states of a cache (none for attention)."""
     return {name: layer["state"].clone() for name, layer in cache.items()
@@ -895,7 +928,8 @@ def serve_phase(cfg, device, phase, prompts, max_len, kernel):
     toks = prefills[-1][0]
     prefill_profile = breakdown(lambda: model.prefill(
         {"tokens": toks}, model.init_cache(1, toks.shape[1],
-                                           dtype=torch.float32)))
+                                           dtype=torch.float32)),
+        sum_of=PREFILL_KERNELS)
     cache = model.init_cache(SERVE_SLOTS, max_len, dtype=torch.float32)
     slot_pos = torch.as_tensor(prompts[-SERVE_SLOTS:], device=device)
     slot_tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device=device)
@@ -967,7 +1001,7 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
     prefill_profile = breakdown(lambda: model.prefill(
         {"tokens": toks}, model.init_cache(batch, cache_len,
                                            dtype=torch.bfloat16)),
-        sum_of={"flash_attention_ms": "flash_fwd"})
+        sum_of=PREFILL_KERNELS)
     torch.cuda.empty_cache()
     plain = model.with_impl("torch")
     cache = plain.init_cache(batch, cache_len, dtype=torch.bfloat16)
@@ -991,6 +1025,7 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
                launches=counts,
                prefill_flash_attention_device_ms=prefill_profile[
                    "flash_attention_ms"],
+               prefill_ssd_scan_device_ms=prefill_profile["ssd_scan_ms"],
                step_flash_decode_device_ms=step_profile["flash_decode_ms"],
                prefill_max_abs_err=prefill_err,
                step_max_abs_err=max(errs), step_mean_abs_err=max(means),
@@ -1051,18 +1086,40 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
             check[f"{key}_max_abs_err"] = e["max_abs_err"]
             check["within_tol"] &= e["within_tol"]
     ms, device_bound = queued_ms(kernel, 5)
-    flops = bh * (seq // q) * 2 * q * (q * n + q * p + 2 * n * p)
+    if s0 is None and seq > q:
+        # What the chain costs: the same chunks, each a row of its own (no
+        # wait, no hand-off read), against the chained call.
+        xs, as_, Bs, Cs = (t.reshape(-1, q, *t.shape[2:])
+                           for t in (x, a, B, C))
+        unchained = queued_ms(
+            lambda: ssk.ssd_scan_bh(xs, as_, Bs, Cs, chunk=q), 5)[0]
+        check.update(unchained_ms=unchained, chain_ms=ms - unchained)
+        del xs, as_, Bs, Cs
+    # Per chunk: C·Bᵀ and (C·Bᵀ∘L)·x over the Q(Q+1)/2 pairs the mask
+    # keeps, C·Sᵀ and (x∘w)ᵀ·B in full.
+    pairs = q * (q + 1) // 2
+    flops = bh * (seq // q) * (2 * pairs * (n + p) + 4 * q * n * p)
     e = x.element_size()
     nbytes = (e * (2 * x.numel() + B.numel() + C.numel()) + 4 * a.numel()
               + 4 * bh * p * n * (2 if with_s0 else 1))
-    bound_ms, bound_by = bound(nbytes, flops, CORE_PEAK_FLOPS[dtype])
+    bound_ms, bound_by = bound(nbytes, flops, TENSOR_PEAK_FLOPS[dtype])
+    if dtype == torch.float32:
+        core_ms = 1e3 * flops / CUDA_CORE_FLOPS
+        check.update(cuda_core_bound_ms=core_ms,
+                     cuda_core_bound_fraction=core_ms / ms)
+    launches = kernel_launches(kernel, "ssd_")
     out = dict(batch=batch, seq=seq, heads=nh, head_dim=p, state=n,
                chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
                strong_decay=strong_decay, a_min=float(a.min()), **check,
                ms=ms, ms_device_bound=device_bound,
+               kernel_launches_per_call=launches,
+               bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 2)[0], bound_ms=bound_ms,
                bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops)
     del x, a, B, C, s0, y, sT, want_y, want_s
+    if launches != 1:
+        raise AssertionError(f"ssd_scan_bh made {launches} kernel launches "
+                             f"a call, expected 1: {out}")
     return out
 
 
@@ -1290,8 +1347,8 @@ def main() -> int:
            for batch, seq, s0, strong in SSD_CASES for dt in dtypes]
     check_cases("ssd_kernel_vs_plain", ssd)
     torch.cuda.empty_cache()
-    serve_phase(ssm_cfg, device, "serve_mamba", SSM_PROMPTS, SERVE_MAX_LEN,
-                "ssd_scan")
+    serve_ssm = serve_phase(ssm_cfg, device, "serve_mamba", SSM_PROMPTS,
+                            SERVE_MAX_LEN, "ssd_scan")
     generate_ssm = generate_phase(
         ssm_cfg, device, "generate_mamba", GEN_SSM_BATCH, GEN_SSM_PROMPT,
         GEN_SSM_PROMPT + GEN_STEPS, {"ssd_scan": ssm_cfg.n_layers})
@@ -1377,24 +1434,37 @@ def main() -> int:
         if match["dtype"] == "float32" and name == "flash_attention":
             row["cuda_core_bound_ms"] = mean_of(sel, "cuda_core_bound_ms")
         line["kernels"].append(row)
-    # ssd_scan: the generate_mamba path's bfloat16 prefill (batch 8, L
-    # 4096), the launches of that path.
-    sel = [c for c in ssd if c["batch"] == GEN_SSM_BATCH and
-           c["seq"] == GEN_SSM_PROMPT and c["dtype"] == "bfloat16" and
-           not c["with_s0"] and not c["strong_decay"]]
-    line["kernels"].append({
-        "name": "ssd_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:79",
-        "launches": generate_ssm["launches"]["ssd_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in ssd),
-        "ms": mean_of(sel, "ms"),
-        "plain_ms": mean_of(sel, "plain_ms"),
-        "bound_ms": mean_of(sel, "bound_ms"),
-        "bound_by": sel[0]["bound_by"],
-        "library_ms": None,
-    })
+    # ssd_scan, one row per dtype on its path: bfloat16 on generate_mamba's
+    # prefill (batch 8, L 4096), float32 on serve_mamba's admissions (its
+    # longest, b 1, L 4096).
+    for launches_on_path, match in (
+            (generate_ssm["launches"]["ssd_scan"],
+             dict(batch=GEN_SSM_BATCH, dtype="bfloat16")),
+            (serve_ssm["launches"]["ssd_scan"],
+             dict(batch=1, dtype="float32"))):
+        sel = [c for c in ssd if c["batch"] == match["batch"] and
+               c["seq"] == GEN_SSM_PROMPT and c["dtype"] == match["dtype"]
+               and not c["with_s0"] and not c["strong_decay"]]
+        row = {
+            "name": f"ssd_scan_{short[match['dtype']]}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:79",
+            "launches": launches_on_path,
+            "max_abs_err": max(c["max_abs_err"] for c in ssd
+                               if c["dtype"] == match["dtype"]),
+            "ms": mean_of(sel, "ms"),
+            "plain_ms": mean_of(sel, "plain_ms"),
+            "bound_ms": mean_of(sel, "bound_ms"),
+            "bound_by": sel[0]["bound_by"],
+            "library_ms": None,
+            "dtype": match["dtype"],
+            "kernel_launches_per_call": sel[0]["kernel_launches_per_call"],
+            "chain_ms": mean_of(sel, "chain_ms"),
+        }
+        if match["dtype"] == "float32":
+            row["cuda_core_bound_ms"] = mean_of(sel, "cuda_core_bound_ms")
+        line["kernels"].append(row)
     emit("chain", chain_ms=per_launch("chain_ms"),
          bound_ms=per_launch("bound_ms"),
          coalesced_chain_ms=per_launch("chain_ms", f32_c),

@@ -14,10 +14,10 @@ version, for NVIDIA Hopper (``sm_90a``).
   scalar position (split-K over the cache, then a combine pass),
   replacing ``repro.kernels.flash_decode.flash_decode_bkv``. Source:
   ``csrc/flash_decode.cu``.
-* ``ssd_scan.py`` — the Mamba2 SSD chunked scan (chunk states, a
-  sequential pass over the chunks, chunk outputs: three launches per
-  call), replacing ``repro.kernels.ssd_scan.ssd_scan_bh``. Source:
-  ``csrc/ssd_scan.cu``.
+* ``ssd_scan.py`` — the Mamba2 SSD chunked scan (one launch per call:
+  a block per chunk, its products on the tensor cores, the state handed
+  from chunk to chunk by a chained scan), replacing
+  ``repro.kernels.ssd_scan.ssd_scan_bh``. Source: ``csrc/ssd_scan.cu``.
 * ``ref.py`` — the model kernels' plain versions; ``ops.py`` — the
   model-layout entry points the models call.
 

@@ -30,7 +30,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "SM90A_FLAGS", "HEAD_DIMS", "DTYPE_CODES",
-           "CudaLibrary", "nvcc", "require_cuda", "require_layout"]
+           "CudaLibrary", "nvcc", "require_cuda", "require_layout",
+           "stream_zeroed_ints"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -41,6 +42,9 @@ SM90A_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # codes of their C interface.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Per (device, stream): the int32 counters and flags the kernels
+# synchronise their blocks through (see ``stream_zeroed_ints``).
+_STREAM_INTS: dict = {}
 
 
 def nvcc() -> str:
@@ -120,3 +124,19 @@ def require_layout(device: torch.device, **tensors: torch.Tensor) -> None:
         if x.device != device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned "
                              f"and on {device}")
+
+
+def stream_zeroed_ints(stream: torch.cuda.Stream, size: int) -> torch.Tensor:
+    """At least ``size`` int32 counters for the kernels launched on
+    ``stream``, zero between launches: allocated zeroed on that stream,
+    and every kernel that uses them leaves them at zero when it ends.
+    Launches on one stream never overlap, so its kernels share one
+    buffer; a buffer per stream keeps concurrent streams apart."""
+    key = (stream.device, stream.cuda_stream)
+    buf = _STREAM_INTS.get(key)
+    if buf is None or buf.numel() < size:
+        with torch.cuda.stream(stream):
+            buf = torch.zeros(max(size, 65536), dtype=torch.int32,
+                              device=stream.device)
+        _STREAM_INTS[key] = buf
+    return buf

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels.cudalib import (DTYPE_CODES, HEAD_DIMS,
                                         SM90A_FLAGS, CudaLibrary,
-                                        require_cuda, require_layout)
+                                        require_cuda, require_layout,
+                                        stream_zeroed_ints)
 
 __all__ = ["flash_decode_bkv", "LIBRARY", "MAX_GROUP"]
 
@@ -44,21 +45,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary("flash_decode", SM90A_FLAGS, _declare,
                       headers=("common.cuh", "sm90.cuh"))
-# Per (device, stream): one int32 counter per row group for the combine,
-# zero between launches (the block that combines resets its own), so
-# launches on one stream, which never overlap, share them; per device:
-# the number of SMs.
-_COUNTERS: dict = {}
+# Per device: the number of SMs.
 _SMS: dict = {}
-
-
-def _counters(stream: torch.cuda.Stream) -> torch.Tensor:
-    key = (stream.device, stream.cuda_stream)
-    if key not in _COUNTERS:
-        with torch.cuda.stream(stream):
-            _COUNTERS[key] = torch.zeros(65536, dtype=torch.int32,
-                                         device=stream.device)
-    return _COUNTERS[key]
 
 
 def _runs(device: torch.device, bkv: int, nchunk: int) -> int:
@@ -125,7 +113,7 @@ def flash_decode_bkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        _counters(stream).data_ptr(), stream.cuda_stream)
+        stream_zeroed_ints(stream, bkv).data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError("flash_decode kernel launch failed: "
                            + lib.flash_decode_error_string(err).decode())

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.jobs import Job
 from repro_torch.kernels import round_step as rsk
+from repro_torch.kernels.cudalib import stream_zeroed_ints
 from repro_torch.sim import rounds, traces
 from repro_torch.sim.scan import FBGrid
 from repro_torch.sim.sweep import ScanOptions, _pack_rounds, paper_grid
@@ -360,7 +361,7 @@ def test_flash_decode_combine_leaves_its_counters_at_zero_on_the_card():
                 stream.synchronize()
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=atol, rtol=rtol)
-        assert int(fdk._counters(stream).abs().sum()) == 0
+        assert int(stream_zeroed_ints(stream, 1).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("pos,window", [(-1, None), (-5, 64), (1087, 64),
@@ -383,7 +384,8 @@ def test_flash_decode_with_no_visible_key_writes_zeros_on_the_card(pos,
     got = fdk.flash_decode_bkv(q, k, v, at, window=window, softcap=50.0)
     torch.cuda.synchronize()
     assert bool((got == 0).all())
-    assert int(fdk._counters(torch.cuda.current_stream(dev)).abs().sum()) == 0
+    assert int(stream_zeroed_ints(
+        torch.cuda.current_stream(dev), 1).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("pos,window", [(-1, None), (400, 64)])
@@ -535,6 +537,7 @@ SSD_CASES = [
     (8, 256, 64, 32, 128), (8, 128, 32, 16, 64), (8, 512, 128, 64, 128),
     (4, 256, 64, 32, 128), (16, 24, 16, 16, 128),   # reduced mamba2
     (24, 1024, 64, 128, 128),                       # mamba2-130m, batch 1
+    (2, 80, 64, 128, 128),                          # one ragged chunk
 ]
 
 
@@ -575,23 +578,88 @@ def test_ssd_scan_kernel_equals_plain_on_the_card(bh, l, p, n, chunk, dtype,
     assert _within(sT, want_s, *STATE_TOL)
 
 
-def test_ssd_scan_kernel_strong_decay_on_the_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_strong_decay_on_the_card(dtype):
     """a = -16 · dt, dt in [0.5, 1.5): the upper triangle's exponents
     overflow; the kernel selects 0 there (finite, equal to the plain
     version and to the token-by-token recurrence)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bh
     dev = _cuda_or_skip()
-    x, _, B, C, _ = _ssd_inputs(24, 512, 64, 128, torch.float32, dev, 5,
-                                False)
+    x, _, B, C, _ = _ssd_inputs(24, 512, 64, 128, dtype, dev, 5, False)
     gen = torch.Generator(device=dev).manual_seed(6)
     a = -16.0 * (0.5 + torch.rand(24, 512, generator=gen, device=dev))
     y, sT = ssd_scan_bh(x, a, B, C)
-    assert torch.isfinite(y).all() and torch.isfinite(sT).all()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(sT).all()
     for want_y, want_s in (ref.ssd_scan_bh_ref(x, a, B, C),
                            ref.ssd_ref(x, a, B, C)):
-        assert _within(y, want_y, *SSD_TOL[torch.float32])
+        assert _within(y, want_y, *SSD_TOL[dtype])
         assert _within(sT, want_s, *STATE_TOL)
+
+
+@pytest.mark.parametrize("bh,dtype", [(192, torch.bfloat16),
+                                      (24, torch.bfloat16),
+                                      (24, torch.float32)])
+def test_ssd_scan_chain_at_full_width_on_the_card(bh, dtype):
+    """mamba2-130m at L 4096: BH 192 (batch 8) is many waves of blocks
+    with several chunk levels in flight at once; BH 24 (batch 1) has a
+    level of 24 rows that wait on each other's hand-offs. Both equal
+    the plain version, and the ticket counter and flags are left at 0."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssk
+    dev = _cuda_or_skip()
+    x, a, B, C, s0 = _ssd_inputs(bh, 4096, 64, 128, dtype, dev, 8, True)
+    y, sT = ssk.ssd_scan_bh(x, a, B, C, s0=s0)
+    want_y, want_s = ref.ssd_scan_bh_ref(x, a, B, C, s0=s0)
+    torch.cuda.synchronize()
+    assert _within(y, want_y, *SSD_TOL[dtype])
+    assert _within(sT, want_s, *STATE_TOL)
+    stream = torch.cuda.current_stream(dev)
+    assert int(stream_zeroed_ints(stream, 1).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_calls_repeat_and_overlap_bit_for_bit_on_the_card(dtype):
+    """Back-to-back calls on one stream give identical results, and two
+    calls running at once on two streams (each with its own counter and
+    flags) equal the same calls made in series, bit for bit."""
+    from repro_torch.kernels import ssd_scan as ssk
+    dev = _cuda_or_skip()
+    one = _ssd_inputs(96, 2048, 64, 128, dtype, dev, 9, True)
+    two = _ssd_inputs(72, 2048, 64, 128, dtype, dev, 10, False)
+    serial = [ssk.ssd_scan_bh(*one[:4], s0=one[4]),
+              ssk.ssd_scan_bh(*two[:4], s0=two[4])]
+    again = ssk.ssd_scan_bh(*one[:4], s0=one[4])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(again, serial[0]))
+    main = torch.cuda.current_stream(dev)
+    side = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in side:
+        s.wait_stream(main)
+    out = []
+    for s, args in zip(side, (one, two)):
+        with torch.cuda.stream(s):
+            out.append(ssk.ssd_scan_bh(*args[:4], s0=args[4]))
+    torch.cuda.synchronize()
+    for got, want in zip(out, serial):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for s in side:
+        assert int(stream_zeroed_ints(s, 1).abs().sum()) == 0
+
+
+def test_ssd_scan_products_run_on_the_tensor_cores_on_the_card():
+    """The built library's SASS holds HGMMA (wgmma) instructions: the
+    chunk products run on the tensor cores."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import ssd_scan as ssk
+    _cuda_or_skip()
+    home = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc").parent
+    sass = subprocess.run([str(home / "cuobjdump"), "-sass",
+                           str(ssk.LIBRARY.build())], capture_output=True,
+                          text=True, check=True).stdout
+    assert "HGMMA" in sass
 
 
 def test_ssd_scan_wrapper_takes_cuda_tensors_only():

@@ -103,6 +103,29 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    as in the reference), teacher-forced against the plain
                    route (logits within 0.25, argmax agreement at least
                    0.9); the prefill's device split (SSD kernel ms)
+  chaos            the chaos tier at the paper's scale: FB at C 135 over
+                   two weeks (NASA iPSC, WorldCup peak 128, lease 1 h,
+                   float32), one pack of three lanes, each with its own
+                   fault schedule (MTBF 6, 24, 96 h), through rounds_grids
+                   on the card, where a fault pack resolves to the plain
+                   round step (kernel "torch"; the CUDA step has no fault
+                   stops): no kernel launch; completed / kills / rounds
+                   equal the JAX package's rows; rows equal the same pack
+                   on the CPU (integrals rtol 1e-5) and lie inside
+                   CONTRACTS["faults"] of the event engine, which loses
+                   no job; LiveCloud with the schedule writes the event
+                   engine's checkpoint-preempt ledger entry for entry;
+                   kernel="cuda" refuses the pack. Then
+                   results/BENCH_faults.json's configuration (2 days, C
+                   32, MTBF 2 / 6 / 24 / 96 h): its rounds rows and
+                   live_ledger_exact. Wall, outer steps, the host loop's
+                   share and one step's device profile
+  live             replay() of the live benchmark's nasa+worldcup lane
+                   inside CONTRACTS["live"] of the event engine and equal
+                   to the JAX package's row and counts, and the faults
+                   benchmark's serving chaos lane (MTBF 2 h, max_queue
+                   64): requests completed, shed, grant retries; host
+                   walls
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba), times,
                    bound; attention and decode one row per dtype on its
@@ -121,6 +144,7 @@ the script exits 1 and prints no result. It imports only ``torch``,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -136,6 +160,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core.jobs import Job  # noqa: E402
+from repro_torch.core.pbj_manager import PBJPolicyParams  # noqa: E402
+from repro_torch.core.runtime_bridge import LiveCloud  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -145,13 +172,20 @@ from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
+from repro_torch.serving.replay import replay  # noqa: E402
 from repro_torch.sim import rounds as roundslib  # noqa: E402
 from repro_torch.sim import sweep as sweeplib  # noqa: E402
 from repro_torch.sim import traces  # noqa: E402
 from repro_torch.sim.capacity import headline_queries  # noqa: E402
 from repro_torch.sim.contracts import (CONTRACTS,  # noqa: E402
-                                       HEADLINE_CONTRACT, check_fidelity)
-from repro_torch.sim.engine import clone_jobs, run_sim  # noqa: E402
+                                       HEADLINE_CONTRACT, check_fidelity,
+                                       demand_drift, no_lost_jobs)
+from repro_torch.sim.engine import (build_fb, clone_jobs,  # noqa: E402
+                                    run_sim, summarize)
+from repro_torch.sim.faults import (burst_schedule,  # noqa: E402
+                                    exponential_schedule, merge_schedules)
+from repro_torch.sim.pump import DecisionLedger  # noqa: E402
+from repro_torch.sim.scan import FBGrid  # noqa: E402
 from repro_torch.sim.sweep import (ScanOptions, _build,  # noqa: E402
                                    _pack_rounds, paper_grid,
                                    run_sweep_workloads)
@@ -469,6 +503,326 @@ def rows_equal(a, b, rtol, label):
             elif ra[k] != rb[k]:
                 raise AssertionError(f"{label} row {i} {k}: {ra[k]} vs "
                                      f"{rb[k]}")
+
+
+# ------------------------------------------ the chaos tier and the live tier
+
+# FB at the headline's answer over the paper's two weeks: NASA iPSC jobs
+# and WorldCup demand (peak 128), lease 3600 s, float32. Per MTBF (hours)
+# the completed jobs, kills and rounds of the JAX package's
+# fb_rounds_row (kernel="xla") under chaos_schedules(135, ...).
+CHAOS_C = 135
+CHAOS_LEASE = 3600.0
+CHAOS_MTTR = 1800.0
+CHAOS_EXPECTED = {6.0: (2518, 39, 13049), 24.0: (2527, 58, 8119),
+                  96.0: (2601, 37, 6780)}
+# results/BENCH_faults.json's configuration: 2 days, C 32, the first 120
+# NASA jobs submitted in the first 60 % (sizes capped at C / 2), WorldCup
+# at peak 16, MTBF 2 / 6 / 24 / 96 h.
+BENCH_FAULTS_C = 32
+BENCH_FAULTS_JOBS = 120
+BENCH_FAULTS_PEAK = 16
+# The live benchmark's nasa+worldcup lane (benchmarks/run.py
+# live_benchmark, same cut and sizes as above) and the faults
+# benchmark's serving lane (MTBF 2 h, max_queue 64): the JAX package's
+# replay() rows and counts on these inputs. results/BENCH_live.json and
+# the serving entry of results/BENCH_faults.json were written by an
+# older revision of the JAX package (node_hours 1499.1083 / 1226.7257,
+# adjust_events 526 / 633), so the port is held to today's.
+LIVE_EXPECTED = {
+    "row": {"system": "live", "completed_jobs": 120,
+            "avg_turnaround": 4089.0207841682213,
+            "avg_execution": 574.3528031066321,
+            "node_hours": 1499.1166666666666, "peak_nodes": 32,
+            "adjust_events": 525, "pbj_adjust_events": 91, "kills": 0},
+    "requests_completed": 82056, "peak_instances": 16,
+    "ledger_events": 722, "shed_requests": 0, "grant_retries": 0}
+SERVE_CHAOS_EXPECTED = {
+    "row": {"system": "live", "completed_jobs": 120,
+            "avg_turnaround": 11480.276835812914,
+            "avg_execution": 490.44783584256714,
+            "node_hours": 1226.6167437303143, "peak_nodes": 32,
+            "adjust_events": 632, "pbj_adjust_events": 198, "kills": 11},
+    "requests_completed": 82056, "ledger_events": 1354,
+    "shed_requests": 0, "grant_retries": 0, "failure_kills": 8}
+
+
+def chaos_schedules(capacity, horizon, mtbf_hours):
+    """The faults benchmark's schedule per MTBF: independent node
+    failures (half the capacity's nodes, MTTR 30 min) merged with bursts
+    of a quarter of the capacity at a quarter of the rate (MTTR 1 h)."""
+    return [merge_schedules(
+        exponential_schedule(seed=7, n_nodes=capacity // 2,
+                             mtbf=h * 3600.0, mttr=CHAOS_MTTR,
+                             duration=horizon),
+        burst_schedule(seed=11, k=max(1, capacity // 4),
+                       mtbf=4 * h * 3600.0, mttr=2 * CHAOS_MTTR,
+                       duration=horizon)) for h in mtbf_hours]
+
+
+def bench_faults_workload(horizon):
+    capacity = BENCH_FAULTS_C
+    jobs = [Job(jid=i, submit=j.submit, size=min(j.size, capacity // 2),
+                runtime=j.runtime)
+            for i, j in enumerate(j for j in traces.nasa_ipsc(seed=0)
+                                  if j.submit < horizon * 0.6)]
+    return (jobs[:BENCH_FAULTS_JOBS],
+            traces.worldcup98(seed=0, peak_vms=BENCH_FAULTS_PEAK,
+                              duration=horizon))
+
+
+def fault_lanes(jobs, ws, capacity, horizon, scheds, device):
+    """One FB pack of one lane per schedule (same jobs and demand) on
+    ``device``, its grid and its spec (kernel None: resolved per pack)."""
+    spec = roundslib.RoundsSpec(
+        duration=horizon, window=roundslib.FB_ROUNDS_WINDOW,
+        max_rounds=roundslib.round_budget(len(jobs), len(ws), horizon,
+                                          CHAOS_LEASE)
+        + 8 * max(len(s) for s in scheds))
+    pk = roundslib.pack_event_workloads(
+        [(jobs, ws)] * len(scheds), horizon, spec.window, "fb",
+        [CHAOS_LEASE], [float(capacity)], faults=scheds, device=device)
+    grid = FBGrid(capacity=torch.tensor([float(capacity)], device=device),
+                  lease=torch.tensor([CHAOS_LEASE], device=device))
+    return grid, pk, spec
+
+
+def lane_rows(out):
+    """The (W, 1) metric tensors of rounds_grids as one row per lane."""
+    W = out["completed_jobs"].shape[0]
+    rows = [{k: float(v[w, 0]) for k, v in out.items()} for w in range(W)]
+    for r in rows:
+        for k in ("completed_jobs", "peak_nodes"):
+            r[k] = int(round(r[k]))
+    return rows
+
+
+def event_and_live(jobs, ws, capacity, horizon, sched):
+    """One schedule through the event engine (kill mode: its row and the
+    no-lost-jobs invariant) and through LiveCloud against the event
+    engine in checkpoint-preempt mode (ledgers entry for entry and
+    node-hours)."""
+    ev_sys = build_fb(capacity, CHAOS_LEASE)
+    ev_jobs = clone_jobs(jobs)
+    ev = run_sim(ev_sys, ev_jobs, ws, duration=horizon, name="event",
+                 faults=sched)
+    lost = no_lost_jobs(ev_jobs, ev_sys)
+    ck_led = DecisionLedger()
+    ck_sys = build_fb(capacity, CHAOS_LEASE,
+                      params=PBJPolicyParams(checkpoint_preempt=True))
+    ck_jobs = clone_jobs(jobs)
+    ck = run_sim(ck_sys, ck_jobs, ws, duration=horizon, name="event_ckpt",
+                 ledger=ck_led, faults=sched)
+    lost += no_lost_jobs(ck_jobs, ck_sys)
+    d0 = max((int(d) for t, d in ws if t <= 0), default=0)
+    cloud = LiveCloud(capacity, lease_seconds=CHAOS_LEASE, duration=horizon,
+                      ws_initial=d0)
+    cloud.load_trace(clone_jobs(jobs), ws_trace=ws, lease_ticks=True)
+    cloud.inject_faults(sched)
+    cloud.run_until(horizon)
+    live = summarize(cloud.service, [], horizon, "live")
+    return ev, lost, dict(
+        live_ledger_exact=cloud.ledger.entries == ck_led.entries
+        and live.node_hours == ck.node_hours,
+        ledger_events=len(ck_led.entries),
+        failure_kills=ck_led.kills("fail"))
+
+
+def chaos_phase(device, smi):
+    """The chaos tier on the card: the paper-scale lanes (one pack, one
+    schedule per MTBF) through rounds_grids on cuda, which resolves a
+    fault pack to the plain step (the CUDA round step has no fault
+    stops, as the JAX package's fused step has none), against the event
+    engine, the table of the JAX package's rows, the same pack on the
+    CPU and LiveCloud; then results/BENCH_faults.json's configuration."""
+    horizon = traces.TWO_WEEKS
+    jobs = traces.nasa_ipsc(seed=0)
+    ws = traces.worldcup98(seed=0, peak_vms=128)
+    mtbf = tuple(CHAOS_EXPECTED)
+    scheds = chaos_schedules(CHAOS_C, horizon, mtbf)
+    t0 = time.perf_counter()
+    grid, pk, spec = fault_lanes(jobs, ws, CHAOS_C, horizon, scheds, device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    kernel = spec.resolve_kernel(pk.device, pk.fault_times is not None)
+    if kernel != "torch":
+        raise AssertionError(f"a fault pack resolved to {kernel!r}")
+    # The outer steps: the plain step's calls, timed on the host (the
+    # loop synchronises once per step to test its lanes).
+    loop = {"steps": 0, "s": 0.0}
+    step_ref = rsk.chunk_step_ref
+
+    def counted(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = step_ref(*args, **kwargs)
+        loop["s"] += time.perf_counter() - t1
+        loop["steps"] += 1
+        return out
+
+    zero_counts()
+    rsk.chunk_step_ref = counted
+    try:
+        t0 = time.perf_counter()
+        out = roundslib.rounds_grids(grid, None, pk, None, fb_spec=spec)["fb"]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        rsk.chunk_step_ref = step_ref
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the fault lanes launched a kernel: {counts}")
+    rows = lane_rows(out)
+    # One outer step's device share: a profile of one plain step from
+    # the lanes' startup state.
+    prm = roundslib._rounds_prm_tree("fb", grid, len(scheds))
+    ctx = roundslib._lane_ctx("fb", prm, pk)
+    sc0, win0 = roundslib._startup("fb", ctx, spec, pk.ws0[prm["w_idx"]])
+    ftab = rsk.fault_table(ctx)
+    inputs = rsk.lane_inputs("fb", ctx, ftab)
+    step = breakdown(lambda: rsk.chunk_step_ref(
+        *inputs, sc0, win0, policy="fb", spec=spec, ftab=ftab))
+    # The same pack on the CPU, plain step.
+    t0 = time.perf_counter()
+    cgrid, cpk, _ = fault_lanes(jobs, ws, CHAOS_C, horizon, scheds, "cpu")
+    cpu_rows = lane_rows(roundslib.rounds_grids(cgrid, None, cpk, None,
+                                                fb_spec=spec)["fb"])
+    cpu_s = time.perf_counter() - t0
+    rows_equal(rows, cpu_rows, INTEGRAL_RTOL[torch.float32],
+               "chaos cuda vs cpu")
+    lanes = []
+    for h, sched, row in zip(mtbf, scheds, rows):
+        got = (row["completed_jobs"], int(row["kills"]), int(row["rounds"]))
+        if got != CHAOS_EXPECTED[h] or row["truncated"] or \
+                row["window_overflow"]:
+            raise AssertionError(f"chaos MTBF {h} h: (completed, kills, "
+                                 f"rounds) {got}, expected "
+                                 f"{CHAOS_EXPECTED[h]}; {row}")
+        ev, lost, live = event_and_live(jobs, ws, CHAOS_C, horizon, sched)
+        violations = CONTRACTS["faults"].check_row(row, ev.row())
+        if violations or lost or not live["live_ledger_exact"]:
+            raise AssertionError(f"chaos MTBF {h} h: contract "
+                                 f"{violations}, lost {lost}, {live}")
+        lanes.append(dict(mtbf_h=h, schedule_events=len(sched), rounds=row,
+                          event=ev.row(), **live))
+    zero_counts()
+    cuda_spec = dataclasses.replace(spec, kernel="cuda")
+    try:
+        roundslib.rounds_grids(grid, None, pk, None, fb_spec=cuda_spec)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("kernel=\"cuda\" ran a fault pack")
+    if any(read_counts().values()):
+        raise AssertionError(f"the refused run launched: {read_counts()}")
+
+    # results/BENCH_faults.json's configuration, one pack of four lanes.
+    bench = json.loads((ROOT / "results" / "BENCH_faults.json"
+                        ).read_text())
+    b_horizon = bench["horizon_s"]
+    b_jobs, b_ws = bench_faults_workload(b_horizon)
+    b_mtbf = tuple(lane["mtbf_h"] for lane in bench["lanes"])
+    b_scheds = chaos_schedules(BENCH_FAULTS_C, b_horizon, b_mtbf)
+    t0 = time.perf_counter()
+    bgrid, bpk, bspec = fault_lanes(b_jobs, b_ws, BENCH_FAULTS_C, b_horizon,
+                                    b_scheds, device)
+    b_rows = lane_rows(roundslib.rounds_grids(bgrid, None, bpk, None,
+                                              fb_spec=bspec)["fb"])
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    b_lanes = []
+    for lane, sched, row in zip(bench["lanes"], b_scheds, b_rows):
+        want = lane["rounds"]
+        bad = [k for k in ("completed_jobs", "kills", "rounds")
+               if row[k] != want[k]]
+        if bad or not np.isclose(row["node_hours"], want["node_hours"],
+                                 rtol=INTEGRAL_RTOL[torch.float32], atol=0):
+            raise AssertionError(f"BENCH_faults MTBF {lane['mtbf_h']} h: "
+                                 f"{row} vs {want}")
+        ev, lost, live = event_and_live(b_jobs, b_ws, BENCH_FAULTS_C,
+                                        b_horizon, sched)
+        violations = CONTRACTS["faults"].check_row(row, ev.row())
+        if violations or lost or not live["live_ledger_exact"]:
+            raise AssertionError(f"BENCH_faults MTBF {lane['mtbf_h']} h: "
+                                 f"contract {violations}, lost {lost}, "
+                                 f"{live}")
+        b_lanes.append(dict(mtbf_h=lane["mtbf_h"], rounds=row,
+                            json_rounds=want, **live))
+    emit("chaos", card=smi, kernel=kernel,
+         note="fault packs run the plain round step on the card "
+              "(kernel=None resolves to \"torch\"; the CUDA step has no "
+              "fault stops and kernel=\"cuda\" refuses them)",
+         capacity=CHAOS_C, horizon_days=horizon / DAY, dtype="float32",
+         lanes=lanes, wall_s=wall_s, pack_s=pack_s,
+         outer_steps=loop["steps"], host_loop_s=loop["s"],
+         host_loop_share=loop["s"] / wall_s, one_step=step,
+         cpu_plain_wall_s=cpu_s, cuda_rows_equal_cpu=True,
+         kernel_launches=counts, cuda_refused=refused,
+         bench_faults={"capacity": BENCH_FAULTS_C,
+                       "horizon_days": b_horizon / DAY, "wall_s": b_wall,
+                       "lanes": b_lanes})
+
+
+def replay_summary(res):
+    return dict(row=res.row.row(), requests_completed=res.requests_completed,
+                peak_instances=res.peak_instances,
+                ledger_events=len(res.ledger.entries),
+                shed_requests=res.shed_requests,
+                grant_retries=res.grant_retries,
+                failure_kills=res.ledger.kills("fail"))
+
+
+def hold_to(got, want, label):
+    """Every key of ``want`` (and of its row) equal in ``got``; floats to
+    rtol 1e-12 (the same Python arithmetic on another host)."""
+    pairs = [(k, got[k], v) for k, v in want.items() if k != "row"]
+    pairs += [(f"row.{k}", got["row"][k], v) for k, v in want["row"].items()]
+    for k, g, v in pairs:
+        ok = (np.isclose(g, v, rtol=1e-12, atol=0)
+              if isinstance(v, float) else g == v)
+        if not ok:
+            raise AssertionError(f"{label} {k}: {g}, expected {v}")
+
+
+def live_phase(smi):
+    """The live tier: replay() of the live benchmark's nasa+worldcup lane
+    (autoscaler + VirtualReplica on LiveCloud's pump) inside
+    CONTRACTS["live"] of the event engine, and the faults benchmark's
+    serving chaos lane; host work, on the port's event pump."""
+    bench = json.loads((ROOT / "results" / "BENCH_faults.json"
+                        ).read_text())
+    horizon = bench["horizon_s"]
+    jobs, ws = bench_faults_workload(horizon)
+    t0 = time.perf_counter()
+    ref = run_sim(build_fb(BENCH_FAULTS_C, params=PBJPolicyParams(
+        checkpoint_preempt=True)), clone_jobs(jobs), ws, duration=horizon,
+        name="event")
+    event_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = replay(clone_jobs(jobs), ws, BENCH_FAULTS_C, duration=horizon,
+                 serve_dt=30.0)
+    live_s = time.perf_counter() - t0
+    violations = CONTRACTS["live"].check_live(
+        res.row.row(), ref.row(), res.derived_demand, res.trace_demand,
+        horizon)
+    if violations:
+        raise AssertionError(f"live contract violated: {violations}")
+    live = replay_summary(res)
+    hold_to(live, LIVE_EXPECTED, "live nasa+worldcup")
+    mae, dpeak = demand_drift(res.derived_demand, res.trace_demand, horizon)
+    sched, = chaos_schedules(BENCH_FAULTS_C, horizon, (2.0,))
+    t0 = time.perf_counter()
+    res_c = replay(clone_jobs(jobs), ws, BENCH_FAULTS_C, duration=horizon,
+                   serve_dt=30.0, faults=sched, max_queue=64)
+    chaos_s = time.perf_counter() - t0
+    serving = replay_summary(res_c)
+    hold_to(serving, SERVE_CHAOS_EXPECTED, "serving chaos")
+    emit("live", card=smi, host_wall_s=live_s, event_wall_s=event_s,
+         note="host work on the port's event pump; the synth_ws lane "
+              "waits for sim/scenarios.py (ROADMAP A5)",
+         lane="nasa+worldcup", event=ref.row(), **live,
+         demand_mae_rel=mae, demand_peak_rel=dpeak, contract_ok=True,
+         serving_chaos=dict(mtbf_h=2.0, max_queue=64, host_wall_s=chaos_s,
+                            **serving))
 
 
 # ------------------------------------------------ the serving slice (LM)
@@ -826,14 +1180,17 @@ def breakdown(fn, sum_of=None):
                    for key, part in (sum_of or {}).items()})
 
 
-def kernel_launches(fn, part, calls=3, tries=5):
+def kernel_launches(fn, part, calls=3, tries=10):
     """Device kernels whose name holds ``part`` per call of ``fn``, from a
     ``torch.profiler`` trace of host and device over ``calls`` calls, as
-    ``breakdown`` takes it. A trace that holds no device kernel at all
-    (now and then one does on an H100) is taken again, up to ``tries``
-    times; then the count was not measured, and this raises."""
+    ``breakdown`` takes it. Every call launches the same kernels, so a
+    trace that holds no device kernel at all, or a count that ``calls``
+    does not divide, lost records (now and then one does on an H100: it
+    held 0 and 2 of 3 in two runs): such a trace is taken again, up to
+    ``tries`` times; then the count was not measured, and this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -843,10 +1200,14 @@ def kernel_launches(fn, part, calls=3, tries=5):
             torch.cuda.synchronize()
         events = [ev for ev in prof.key_averages()
                   if ev.device_type == DeviceType.CUDA]
-        if events:
-            return sum(ev.count for ev in events if part in ev.key) / calls
-    raise AssertionError(f"{tries} profiler traces of {calls} calls held no "
-                         f"device kernel: the launches were not counted")
+        n = sum(ev.count for ev in events if part in ev.key)
+        if events and n % calls == 0:
+            return n / calls
+        seen.append(n if events else None)
+    raise AssertionError(f"{tries} profiler traces of {calls} calls lost "
+                         f"device records (kernels whose name holds {part!r}"
+                         f" per trace, None: no device kernel at all: "
+                         f"{seen}): the launches were not counted")
 
 
 # The prefill profiles' device ms of the model kernels, by name part.
@@ -1352,6 +1713,15 @@ def main() -> int:
     generate_ssm = generate_phase(
         ssm_cfg, device, "generate_mamba", GEN_SSM_BATCH, GEN_SSM_PROMPT,
         GEN_SSM_PROMPT + GEN_STEPS, {"ssd_scan": ssm_cfg.n_layers})
+
+    # --- the chaos tier (fault lanes on the plain step) and the live tier;
+    # last, so that its profile of one plain step comes after the model
+    # phases' profiler checks
+    chaos_phase(device, smi)
+    zero_counts()
+    live_phase(smi)
+    if any(read_counts().values()):
+        raise AssertionError(f"the live tier launched: {read_counts()}")
 
     # --- the kernel table line
     # round_step: times and bounds at the main path's shapes, the float32

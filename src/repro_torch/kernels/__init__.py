@@ -5,7 +5,8 @@ version, for NVIDIA Hopper (``sm_90a``).
   (``repro_torch.sim.rounds``), replacing the JAX package's Pallas
   ``repro.kernels.round_step.chunk_step``. Source:
   ``csrc/round_step.cu``. ``RoundsSpec.kernel`` picks the plain version
-  (``chunk_step_ref``) on the CPU.
+  (``chunk_step_ref``) on the CPU, and for packs with fault schedules on
+  any device (the kernel has no fault stops).
 * ``flash_attention.py`` — blocked online-softmax attention forward
   (GQA, causal, sliding window, softcap), replacing
   ``repro.kernels.flash_attention.flash_attention_bkv``. Source:

@@ -24,6 +24,13 @@ per slot. Inputs per lane: ``jobs`` (N, 3, Jp) job table, ``rises``
 B, lb_ws, U, V, G). The pack is exact for every field: flags are 0/1 and
 the two int cursors stay far below 2**24.
 
+A pack with fault schedules (the chaos tier, FB only) adds a fourth
+table, ``ftab`` (N, 3, NF): fault times, the failed count after each and
+the raw demand at each (:func:`fault_table`). Only the plain version
+takes it; :func:`chunk_step` and :func:`run_rounds` refuse it, as the
+JAX package's fused Pallas step refuses fault packs, and the engine runs
+such packs on the plain step (``RoundsSpec.resolve_kernel``).
+
 :func:`chunk_step_ref` is the plain version: unpack → the engine's own
 ``_chunk_core`` → pack. :func:`chunk_step` and :func:`run_rounds` launch
 the kernel on CUDA tensors and count each launch in their ``launches``;
@@ -38,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,9 +54,9 @@ from repro_torch.sim import rounds as _rounds
 from repro_torch.sim.rounds import ACC_KEYS, RoundsSpec
 
 __all__ = ["SC_SIZE", "WIN_ROWS", "pack_carry", "unpack_carry",
-           "lane_inputs", "chunk_step", "chunk_step_ref", "run_rounds",
-           "outer_steps", "zero_outer_steps", "build", "chain_barriers",
-           "chain_probe"]
+           "lane_inputs", "fault_table", "chunk_step", "chunk_step_ref",
+           "run_rounds", "outer_steps", "zero_outer_steps", "build",
+           "chain_barriers", "chain_probe"]
 
 # ----------------------------------------------------------- state layout
 
@@ -95,12 +102,24 @@ def unpack_carry(sc: torch.Tensor, win: torch.Tensor):
             win[:, WIN_START], win[:, WIN_END], acc)
 
 
-def lane_inputs(policy: str, ctx: Dict) -> Tuple[torch.Tensor, torch.Tensor,
-                                                 torch.Tensor, torch.Tensor]:
+def fault_table(ctx: Dict) -> Optional[torch.Tensor]:
+    """The chaos tier's stop table ``ftab`` (N, 3, NF) — fault times,
+    failed count after each, raw demand at each — from the engine's ctx
+    dict, or ``None`` when the pack has no fault schedules."""
+    if "fault_times" not in ctx:
+        return None
+    return torch.stack([ctx[k] for k in _rounds._FAULT_FIELDS],
+                       dim=1).contiguous()
+
+
+def lane_inputs(policy: str, ctx: Dict, ftab: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
     """The engine's per-lane ctx dict → the kernel's four stacked,
     contiguous input tensors ``(jobs, rises, wstab, prm)``, checked once
-    here for every launch of a simulation (:func:`chunk_step` checks only
-    the state it is given)."""
+    here (with the fault table ``ftab`` when given) for every launch of
+    a simulation (:func:`chunk_step` checks only the state it is
+    given)."""
     jobs = torch.stack([ctx["tr_submit"], ctx["tr_size"],
                         ctx["tr_runtime"]], dim=1)
     rises = torch.stack([ctx["rise_times"], ctx["rise_vals"]], dim=1)
@@ -111,11 +130,11 @@ def lane_inputs(policy: str, ctx: Dict) -> Tuple[torch.Tensor, torch.Tensor,
     prm = torch.stack([ctx[k].to(f) for k in keys], dim=1)
     inputs = (jobs.contiguous(), rises.contiguous(), wstab.contiguous(),
               prm.contiguous())
-    _check_lane_inputs(policy, *inputs)
+    _check_lane_inputs(policy, *inputs, ftab=ftab)
     return inputs
 
 
-def _check_lane_inputs(policy, jobs, rises, wstab, prm) -> None:
+def _check_lane_inputs(policy, jobs, rises, wstab, prm, ftab=None) -> None:
     f = jobs.dtype
     if f not in (torch.float32, torch.float64):
         raise TypeError(f"round_step takes float32 or float64, got {f}")
@@ -125,6 +144,10 @@ def _check_lane_inputs(policy, jobs, rises, wstab, prm) -> None:
               "rises": (rises, (N, 2, rises.shape[-1])),
               "wstab": (wstab, (N, 2, wstab.shape[-1])),
               "prm": (prm, (N, n_prm))}
+    if ftab is not None:
+        if policy != "fb":
+            raise ValueError("fault tables are FB-only")
+        shapes["ftab"] = (ftab, (N, 3, ftab.shape[-1]))
     for name, (x, shape) in shapes.items():
         if x.dtype != f or x.device != jobs.device:
             raise TypeError(f"{name}: {x.dtype} on {x.device}, expected "
@@ -134,9 +157,10 @@ def _check_lane_inputs(policy, jobs, rises, wstab, prm) -> None:
                              f"{x.is_contiguous()}), expected {shape}")
 
 
-def _ctx_from_inputs(policy: str, jobs, rises, wstab, prm) -> Dict:
+def _ctx_from_inputs(policy: str, jobs, rises, wstab, prm,
+                     ftab=None) -> Dict:
     """Rebuild the engine's ctx dict from the stacked kernel inputs —
-    the exact inverse of :func:`lane_inputs`."""
+    the exact inverse of :func:`lane_inputs` and :func:`fault_table`."""
     ctx = {
         "L": prm[:, 0],
         "tr_submit": jobs[:, 0], "tr_size": jobs[:, 1],
@@ -149,14 +173,20 @@ def _ctx_from_inputs(policy: str, jobs, rises, wstab, prm) -> Dict:
     else:
         ctx["B"], ctx["lb_ws"], ctx["U"], ctx["V"], ctx["G"] = (
             prm[:, 1], prm[:, 2], prm[:, 3], prm[:, 4], prm[:, 5])
+    if ftab is not None:
+        # Contiguous rows: the round body binary-searches the times.
+        for i, k in enumerate(_rounds._FAULT_FIELDS):
+            ctx[k] = ftab[:, i].contiguous()
     return ctx
 
 
 def chunk_step_ref(jobs, rises, wstab, prm, sc, win, *, policy: str,
-                   spec: RoundsSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+                   spec: RoundsSpec, ftab: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`chunk_step`: the same pack →
-    ``_chunk_core`` → unpack round trip as tensor ops over all lanes."""
-    ctx = _ctx_from_inputs(policy, jobs, rises, wstab, prm)
+    ``_chunk_core`` → unpack round trip as tensor ops over all lanes,
+    with the chaos tier's fault stops when ``ftab`` is given."""
+    ctx = _ctx_from_inputs(policy, jobs, rises, wstab, prm, ftab)
     core = unpack_carry(sc, win)
     return pack_carry(_rounds._chunk_core(policy, ctx, spec, core))
 
@@ -199,9 +229,13 @@ def _library() -> ctypes.CDLL:
     return LIBRARY.get()
 
 
-def _check_state(jobs, sc, win, spec) -> None:
-    """The per-launch checks: the state against the lane inputs (which
-    :func:`lane_inputs` checked) and the spec."""
+def _check_state(jobs, sc, win, spec, ftab) -> None:
+    """The per-launch checks: no fault table, the state against the lane
+    inputs (which :func:`lane_inputs` checked) and the spec."""
+    if ftab is not None:
+        raise NotImplementedError(
+            "fault injection is not supported by the fused CUDA round "
+            "step; use kernel=\"torch\" (chunk_step_ref)")
     if sc.device.type != "cuda":
         raise ValueError(f"chunk_step launches the CUDA kernel and takes "
                          f"CUDA tensors, got {sc.device}; the CPU runs "
@@ -221,14 +255,16 @@ def _check_state(jobs, sc, win, spec) -> None:
 
 
 def chunk_step(jobs, rises, wstab, prm, sc, win, *, policy: str,
-               spec: RoundsSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+               spec: RoundsSpec, ftab: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused outer step for every lane: compaction + admission +
     size classes + ``spec.compact_every`` rounds, as ONE kernel launch
     (one thread block per lane), with the contended-stretch coalescer
     when ``spec.batch > 1``. The inputs come from :func:`lane_inputs`;
     the tensors must lie on a CUDA device, where the kernel runs or this
-    raises."""
-    _check_state(jobs, sc, win, spec)
+    raises. A fault table ``ftab`` raises: the kernel has no fault
+    stops."""
+    _check_state(jobs, sc, win, spec, ftab)
     lib = _library()
     sc_out = torch.empty_like(sc)
     win_out = torch.empty_like(win)
@@ -256,7 +292,8 @@ _OUTER_STEPS: Dict[torch.device, torch.Tensor] = {}
 
 
 def run_rounds(jobs, rises, wstab, prm, sc, win, *, policy: str,
-               spec: RoundsSpec, outer_max: int
+               spec: RoundsSpec, outer_max: int,
+               ftab: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every lane's whole outer loop as ONE kernel launch: each block
     runs outer steps of its lane (those of :func:`chunk_step`) while
@@ -264,8 +301,9 @@ def run_rounds(jobs, rises, wstab, prm, sc, win, *, policy: str,
     predicate, and a lane that fails it keeps its state. Returns the
     final ``(sc, win)`` and each lane's outer-step count (int32, on the
     device). The inputs come from :func:`lane_inputs`; the tensors must
-    lie on a CUDA device, where the kernel runs or this raises."""
-    _check_state(jobs, sc, win, spec)
+    lie on a CUDA device, where the kernel runs or this raises. A fault
+    table ``ftab`` raises, as in :func:`chunk_step`."""
+    _check_state(jobs, sc, win, spec, ftab)
     lib = _library()
     sc_out = torch.empty_like(sc)
     win_out = torch.empty_like(win)

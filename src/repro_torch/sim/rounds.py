@@ -32,9 +32,15 @@ What differs is the form:
   lane's ``0 - inf`` would otherwise turn the sum into NaN. XLA rewrites
   the product into the same select, so the values agree.
 
-Not ported yet (each raises, naming the ROADMAP item): the chaos tier's
-fault stops (``faults=``) and the multi-GPU lane splitter
-(``devices`` other than ``None`` / 1).
+The chaos tier (``faults=``, FB only, :mod:`repro_torch.sim.faults`)
+adds three per-lane tables to the pack: every fault instant is a loop
+stop, and the capacity the policy acts on becomes ``max(C - failed(t),
+0)``. Like the reference's fused Pallas step, the CUDA round step does
+not take them: ``kernel=None`` runs a fault pack on the plain step
+(``"torch"``) on any device, and ``kernel="cuda"`` refuses it.
+
+Not ported yet (raises, naming the ROADMAP item): the multi-GPU lane
+splitter (``devices`` other than ``None`` / 1).
 """
 
 from __future__ import annotations
@@ -71,10 +77,7 @@ COMPACT_EVERY = 8
 COALESCE_BATCH = 8
 DEFAULT_BATCH = 1
 KERNELS = ("cuda", "torch")
-
-_FAULTS_LATER = ("fault schedules (faults=) are not ported yet: the chaos "
-                 "tier is queued in ROADMAP (fault tier, with a copy of "
-                 "sim/faults.py); run them on the JAX package")
+_FAULT_FIELDS = ("fault_times", "fault_failed", "fault_wsv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +90,10 @@ class RoundsSpec:
     ``kernel`` selects the round-step backend: ``"cuda"`` launches the
     hand-written kernel (``repro_torch.kernels.round_step``), ``"torch"``
     runs the plain version, ``None`` picks ``"cuda"`` on a CUDA device
-    and ``"torch"`` on the CPU."""
+    and ``"torch"`` on the CPU. A pack with fault tables always runs
+    ``"torch"``: the kernel has no fault stops (nor has the reference's
+    fused Pallas step), so ``None`` resolves to the plain step before
+    any launch and ``"cuda"`` raises."""
 
     duration: float
     max_rounds: int
@@ -103,8 +109,16 @@ class RoundsSpec:
                 f"unknown rounds kernel {self.kernel!r}; expected "
                 f"\"cuda\" or \"torch\"")
 
-    def resolve_kernel(self, device: torch.device) -> str:
-        """The backend this spec runs on ``device``."""
+    def resolve_kernel(self, device: torch.device,
+                       faulted: bool = False) -> str:
+        """The backend this spec runs on ``device``, for a pack with
+        (``faulted``) or without fault tables."""
+        if faulted:
+            if self.kernel == "cuda":
+                raise NotImplementedError(
+                    "fault injection is not supported by the fused CUDA "
+                    "round step; use kernel=\"torch\"")
+            return "torch"
         if self.kernel is None:
             return "cuda" if device.type == "cuda" else "torch"
         if self.kernel == "cuda" and device.type != "cuda":
@@ -131,32 +145,41 @@ class PackedEventWorkloads:
     #                            policy's WS share (peak folding)
     ws_at_tick: torch.Tensor   # (W, P, NT) demand at each lease boundary
     n_jobs: torch.Tensor       # (W,) real (unpadded) job counts
+    # Chaos tier, FB only; None (the default) leaves the pack what it is
+    # without faults.
+    fault_times: Optional[torch.Tensor] = None   # (W, NF) stops, +inf
+    fault_failed: Optional[torch.Tensor] = None  # (W, NF) failed count
+    #                                              in effect AFTER each stop
+    fault_wsv: Optional[torch.Tensor] = None     # (W, NF) raw WS demand at
+    #                                              each stop (reclaim level)
 
     @property
     def device(self) -> torch.device:
         return self.submit.device
 
 
-_PACK_FIELDS = tuple(f.name for f in dataclasses.fields(PackedEventWorkloads))
+# The fields every pack holds; the chaos tier's _FAULT_FIELDS are optional.
+_PACK_FIELDS = tuple(f.name for f in dataclasses.fields(PackedEventWorkloads)
+                     if f.name not in _FAULT_FIELDS)
 
 
 def _to_pack(arrays: Dict[str, np.ndarray],
              device: torch.device) -> PackedEventWorkloads:
+    """The pack of the fields ``arrays`` holds (the fault tables are
+    optional)."""
     return PackedEventWorkloads(**{
-        k: torch.from_numpy(np.array(arrays[k], order="C")).to(device)
-        for k in _PACK_FIELDS})
+        k: torch.from_numpy(np.array(v, order="C")).to(device)
+        for k, v in arrays.items()})
 
 
 def from_reference_pack(pk: Dict[str, np.ndarray],
                         device: compat.Device = None
                         ) -> PackedEventWorkloads:
     """A :class:`PackedEventWorkloads` from the JAX package's pack, given
-    as a dict of numpy arrays (field name → array). Fault tables must be
-    absent or ``None``."""
-    if any(pk.get(k) is not None for k in ("fault_times", "fault_failed",
-                                           "fault_wsv")):
-        raise NotImplementedError(_FAULTS_LATER)
-    return _to_pack({k: np.asarray(pk[k]) for k in _PACK_FIELDS},
+    as a dict of numpy arrays (field name → array). The three fault
+    tables are taken when present and not ``None``."""
+    return _to_pack({k: np.asarray(pk[k]) for k in _PACK_FIELDS
+                     + _FAULT_FIELDS if pk.get(k) is not None},
                     compat.resolve_device(device))
 
 
@@ -344,16 +367,34 @@ def pack_event_workloads(workloads: Sequence[Tuple[Sequence[Job],
     float32. With ``split=True`` the return value is a LIST of
     single-workload packs (one per trace, identical shapes since they
     are padded together) cut on the host.
+
+    ``faults``, when given, is a per-workload sequence of
+    :class:`repro_torch.sim.faults.FaultSchedule` (or ``None`` entries)
+    — FB only. Fault instants become loop stops (``fault_times`` /
+    ``fault_failed`` / ``fault_wsv``), and the fold tables are rebuilt
+    on the union of demand and fault change points with the FB share
+    line ``min(ws, max(C - failed(t), 0))``. Demand-rise stops keep
+    coming from the original demand points.
     """
-    if faults is not None and any(f is not None and len(f) for f in faults):
-        raise NotImplementedError(_FAULTS_LATER)
     dev = compat.resolve_device(device)
     dtype = resolve_pack_dtype(dtype)
+    if faults is not None and any(f is not None and len(f) for f in faults):
+        if policy != "fb":
+            raise ValueError(
+                "fault schedules are FB-only in the rounds engine; run "
+                "FLB-NUB faults through the event engine")
+        if len(faults) != len(workloads):
+            raise ValueError(
+                f"faults ({len(faults)}) must align with workloads "
+                f"({len(workloads)})")
+    else:
+        faults = None
     submit, size, runtime, n_jobs = pack_job_table(workloads, window, dtype)
     W = len(workloads)
     leases = np.asarray(leases, np.float64)
     levels = np.asarray(levels, np.float64)
     rises: List[Tuple[np.ndarray, np.ndarray]] = []
+    fault_tabs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
     integrals, winmaxes, at_ticks = [], [], []
     ws0 = np.zeros(W, dtype)
     ws_adjusts = np.zeros(W, dtype)
@@ -366,10 +407,43 @@ def pack_event_workloads(workloads: Sequence[Tuple[Sequence[Job],
         ws_adjusts[w] = (len(times) - 1) + float(values[0] > 0)
         up = values[1:] > values[:-1]
         rises.append((times[1:][up], values[1:][up]))
+        fs = faults[w] if faults is not None else None
+        failed_b = b""
+        if fs is not None and len(fs):
+            # The site ledger's clamp (at most C nodes down at once) is
+            # per capacity: a multi-level grid shares one fault table
+            # only when the clamp never binds.
+            if np.unique(levels).size == 1:
+                fs = fs.clamp(int(levels[0]))
+            elif fs.max_concurrent() > int(np.min(levels)):
+                raise ValueError(
+                    "fault schedule's concurrent failures exceed the "
+                    "smallest capacity level; the ledger clamp is "
+                    "per-capacity — pack one level at a time")
+        if fs is not None and len(fs):
+            f_t, f_n = fs.failed_series()
+            # Distinct fault instants inside the horizon, the failed
+            # count after all same-time events and the raw demand there.
+            u_t = np.unique(f_t[f_t < duration])
+            u_n = np.concatenate([[0], f_n])[
+                np.searchsorted(f_t, u_t, "right")].astype(np.float64)
+            u_w = values[np.searchsorted(times, u_t, "right") - 1]
+            fault_tabs.append((u_t, u_n, u_w))
+            # Fold axis: the union of demand and fault change points.
+            m_t = np.union1d(times, u_t)
+            m_v = values[np.searchsorted(times, m_t, "right") - 1]
+            m_f = np.concatenate([[0.0], u_n])[
+                np.searchsorted(u_t, m_t, "right")]
+            fold_t, fold_v = m_t, m_v
+            failed_b = np.ascontiguousarray(m_f, np.float64).tobytes()
+        else:
+            fault_tabs.append((np.zeros(0), np.zeros(0), np.zeros(0)))
+            fold_t, fold_v = times, values
         integral, winmax, at_tick = _fold_tables_cached(
-            np.ascontiguousarray(times, np.float64).tobytes(),
-            np.ascontiguousarray(values, np.float64).tobytes(),
-            float(duration), policy, leases.tobytes(), levels.tobytes())
+            np.ascontiguousarray(fold_t, np.float64).tobytes(),
+            np.ascontiguousarray(fold_v, np.float64).tobytes(),
+            float(duration), policy, leases.tobytes(), levels.tobytes(),
+            failed_b)
         integrals.append(integral)
         winmaxes.append(winmax)
         at_ticks.append(at_tick)
@@ -386,6 +460,17 @@ def pack_event_workloads(workloads: Sequence[Tuple[Sequence[Job],
         ws_integral=np.stack(integrals).astype(dtype),
         ws_winmax=np.stack(winmaxes).astype(dtype),
         ws_at_tick=np.stack(at_ticks).astype(dtype), n_jobs=n_jobs)
+    if faults is not None:
+        nf = max(len(ft) for ft, _, _ in fault_tabs) + 1  # +inf sentinel
+        fault_times = np.full((W, nf), np.inf, dtype)
+        fault_failed = np.zeros((W, nf), dtype)
+        fault_wsv = np.zeros((W, nf), dtype)
+        for w, (f_t, f_n, f_w) in enumerate(fault_tabs):
+            fault_times[w, :len(f_t)] = f_t
+            fault_failed[w, :len(f_n)] = f_n
+            fault_wsv[w, :len(f_w)] = f_w
+        arrays.update(fault_times=fault_times, fault_failed=fault_failed,
+                      fault_wsv=fault_wsv)
     if split:
         return [_to_pack({k: v[w:w + 1] for k, v in arrays.items()}, dev)
                 for w in range(W)]
@@ -429,6 +514,11 @@ def _lane_ctx(policy: str, prm: Dict, pk: PackedEventWorkloads) -> Dict:
     }
     if policy == "fb":
         ctx["C"] = prm["capacity"].to(f)
+        if pk.fault_times is not None:
+            # Chaos tier: the fault stops, the failed count after each
+            # and the raw demand at each (the pack enforces FB-only).
+            for k in _FAULT_FIELDS:
+                ctx[k] = getattr(pk, k)[w]                # (N, NF)
     else:
         for k in ("B", "lb_ws", "U", "V", "G"):
             ctx[k] = prm[k].to(f)
@@ -501,6 +591,13 @@ def _round_body(policy: str, ctx: Dict, spec: RoundsSpec, carry, szcls):
     b0 = torch.minimum(t_tick, torch.clamp_max(row_next, duration))
     if policy == "fb":
         b0 = torch.minimum(b0, _take(ctx["rise_times"], rise_i))
+    faulted = "fault_times" in ctx
+    if faulted:
+        # Chaos tier: every fault instant is a stop; between stops the
+        # failed count, and so the effective capacity, is constant.
+        ft = ctx["fault_times"]
+        fi = torch.searchsorted(ft, t[:, None].contiguous(), right=True)[:, 0]
+        b0 = torch.minimum(b0, _take(ft, fi))
     if not coalesce:
         b0 = torch.minimum(b0, torch.where(has_queue, mins1, inf))
     fresh = (w_sub > tc) & (w_sub <= b0[:, None])
@@ -550,6 +647,18 @@ def _round_body(policy: str, ctx: Dict, spec: RoundsSpec, carry, szcls):
         rised = _take(ctx["rise_times"], rise_i) <= b
         wsv = torch.where(rised, _take(ctx["rise_vals"], rise_i), wsv)
         rise_i = rise_i + rised.to(torch.int32)
+    if faulted:
+        # Effective capacity at b: the failed count after the last fault
+        # event <= b. At a fault instant the carried demand syncs to the
+        # packed raw value (the event engine's on_fail sees the current
+        # demand; the carried wsv tracks only rises and ticks).
+        fib = torch.searchsorted(ft, b[:, None].contiguous(), right=True)[:, 0]
+        fprev = torch.clamp_min(fib - 1, 0)
+        hit = fib > 0
+        failed_b = torch.where(hit, _take(ctx["fault_failed"], fprev), zero)
+        wsv = torch.where(hit & (_take(ft, fprev) == b),
+                          _take(ctx["fault_wsv"], fprev), wsv)
+        ctx = dict(ctx, C=torch.clamp_min(ctx["C"] - failed_b, zero))
     wsv = torch.where(is_tick, _take(ctx["ws_at_tick"], win), wsv)
     owned, pool_pbj, run, starts, integrand, acc = _actions(
         policy, ctx, spec.ff_passes, owned, pool_pbj, run, used, queued,
@@ -758,12 +867,13 @@ def _simulate_rounds(policy: str, prm: Dict, pk: PackedEventWorkloads,
     plain version over the packed state and freezes each lane once its
     predicate fails."""
     from repro_torch.kernels import round_step as rsk
-    kernel = spec.resolve_kernel(pk.device)
+    kernel = spec.resolve_kernel(pk.device, pk.fault_times is not None)
     ctx = _lane_ctx(policy, prm, pk)
     f = pk.submit.dtype
     w_idx, p_idx = prm["w_idx"], prm["p_idx"]
     sc, win = _startup(policy, ctx, spec, pk.ws0[w_idx])
-    jobs, rises, wstab, prmv = rsk.lane_inputs(policy, ctx)
+    ftab = rsk.fault_table(ctx)
+    jobs, rises, wstab, prmv = rsk.lane_inputs(policy, ctx, ftab)
     outer_max = -(-spec.max_rounds // spec.compact_every)
     dur = torch.tensor(spec.duration, dtype=f, device=sc.device)
     if kernel == "cuda":
@@ -777,7 +887,8 @@ def _simulate_rounds(policy: str, prm: Dict, pk: PackedEventWorkloads,
             if not bool(live.any()):
                 break
             sc_n, win_n = rsk.chunk_step_ref(jobs, rises, wstab, prmv, sc,
-                                             win, policy=policy, spec=spec)
+                                             win, policy=policy, spec=spec,
+                                             ftab=ftab)
             sc = torch.where(live[:, None], sc_n, sc)
             win = torch.where(live[:, None, None], win_n, win)
             i = i + live.to(torch.int32)
@@ -849,18 +960,21 @@ def fb_rounds_row(jobs: Sequence[Job], ws_trace: Sequence[Tuple[float, int]],
                   batch: int = DEFAULT_BATCH, dtype=None,
                   device: compat.Device = None) -> Dict[str, float]:
     """One FB (capacity, lease) point through the rounds engine as a
-    plain scalar row."""
-    if faults is not None:
-        raise NotImplementedError(_FAULTS_LATER)
+    plain scalar row. With ``faults`` set, the schedule's stops fold
+    into the horizon and the effective capacity becomes ``max(C -
+    failed(t), 0)`` (see :func:`pack_event_workloads`); such a row runs
+    the plain step (``RoundsSpec``)."""
+    n_faults = len(faults) if faults is not None else 0
     spec = RoundsSpec(
         duration=float(duration),
         max_rounds=round_budget(len(jobs), len(list(ws_trace)),
-                                float(duration), float(lease_seconds)),
+                                float(duration), float(lease_seconds))
+        + 8 * n_faults,   # each fault stop may kill + restart jobs
         window=FB_ROUNDS_WINDOW, kernel=kernel, batch=batch)
     pk = pack_event_workloads(
         [(jobs, ws_trace)], float(duration), spec.window, "fb",
         [float(lease_seconds)], [float(capacity)], dtype=dtype,
-        device=device)
+        faults=[faults] if faults is not None else None, device=device)
     f = pk.submit.dtype
     fb = FBGrid(capacity=torch.tensor([float(capacity)], dtype=f,
                                       device=pk.device),

@@ -7,11 +7,14 @@ equal ``chunk_step_ref`` on the same CUDA tensors, exactly except the
 three time integrals (rtol 1e-5 float32, 1e-6 float64), with the
 contended-stretch coalescer off and on (batch 1 and 8), and the
 one-launch loop (``run_rounds``) must equal the per-chunk kernel path
-bit for bit; the flash
+bit for bit; a pack with fault schedules runs the plain step on the card
+(no launch) with the CPU's rows, and the kernel refuses it; the flash
 attention and flash decode kernels must match ``kernels.ref`` (see the
 tolerances below), and a reduced model's kernel path its plain path.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -231,6 +234,88 @@ def test_rounds_grids_launch_once_per_policy_on_the_card():
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
             else:
                 assert torch.equal(got, want), (policy, key)
+
+
+def _fault_pack(dev, capacity=32, horizon=2 * DAY, mtbf_h=(2.0, 24.0)):
+    """results/BENCH_faults.json's configuration on a cut of the paper
+    traces: one lane per MTBF, each with its own schedule."""
+    from repro_torch.sim.faults import (burst_schedule, exponential_schedule,
+                                        merge_schedules)
+    jobs = [Job(jid=i, submit=j.submit, size=min(j.size, capacity // 2),
+                runtime=j.runtime)
+            for i, j in enumerate(j for j in traces.nasa_ipsc(seed=0)
+                                  if j.submit < horizon * 0.6)][:120]
+    ws = traces.worldcup98(seed=0, peak_vms=16, duration=horizon)
+    scheds = [merge_schedules(
+        exponential_schedule(seed=7, n_nodes=capacity // 2,
+                             mtbf=h * 3600.0, mttr=1800.0, duration=horizon),
+        burst_schedule(seed=11, k=capacity // 4, mtbf=4 * h * 3600.0,
+                       mttr=3600.0, duration=horizon)) for h in mtbf_h]
+    spec = rounds.RoundsSpec(
+        duration=horizon, window=rounds.FB_ROUNDS_WINDOW,
+        max_rounds=rounds.round_budget(len(jobs), len(ws), horizon, 3600.0)
+        + 8 * max(len(s) for s in scheds))
+    pk = rounds.pack_event_workloads(
+        [(jobs, ws)] * len(scheds), horizon, spec.window, "fb", [3600.0],
+        [float(capacity)], faults=scheds, device=dev)
+    grid = FBGrid(capacity=torch.tensor([float(capacity)], device=dev),
+                  lease=torch.tensor([3600.0], device=dev))
+    return grid, pk, spec
+
+
+def test_fault_pack_runs_the_plain_step_on_the_card():
+    """A fault pack on cuda resolves to kernel "torch" (no launch) and
+    gives the CPU rows, exact except the three integrals (rtol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        grid, pk, spec = _fault_pack(d)
+        assert spec.resolve_kernel(pk.device, True) == "torch"
+        launches = (rsk.chunk_step.launches, rsk.run_rounds.launches)
+        outs.append(rounds.rounds_grids(grid, None, pk, None,
+                                        fb_spec=spec)["fb"])
+        assert (rsk.chunk_step.launches, rsk.run_rounds.launches) == launches
+    assert float(outs[0]["kills"].sum()) > 0
+    for key, got in outs[0].items():
+        want = outs[1][key]
+        assert got.device.type == "cuda"
+        if key in ("avg_turnaround", "avg_execution", "node_hours"):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got.cpu(), want), key
+
+
+def test_kernel_refuses_a_fault_table_on_the_card():
+    """kernel="cuda", run_rounds and chunk_step refuse a fault pack; the
+    same pack without its schedules still launches the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    grid, pk, spec = _fault_pack(dev)
+    cuda_spec = dataclasses.replace(spec, kernel="cuda")
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        rounds.rounds_grids(grid, None, pk, None, fb_spec=cuda_spec)
+    prm = rounds._rounds_prm_tree("fb", grid, int(pk.submit.shape[0]))
+    ctx = rounds._lane_ctx("fb", prm, pk)
+    ftab = rsk.fault_table(ctx)
+    inputs = rsk.lane_inputs("fb", ctx, ftab)
+    sc, win = rounds._startup("fb", ctx, spec, pk.ws0[prm["w_idx"]])
+    launches = (rsk.chunk_step.launches, rsk.run_rounds.launches)
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        rsk.chunk_step(*inputs, sc, win, policy="fb", spec=spec, ftab=ftab)
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        rsk.run_rounds(*inputs, sc, win, policy="fb", spec=spec,
+                       outer_max=4, ftab=ftab)
+    assert (rsk.chunk_step.launches, rsk.run_rounds.launches) == launches
+    plain = dataclasses.replace(pk, fault_times=None, fault_failed=None,
+                                fault_wsv=None)
+    assert spec.resolve_kernel(plain.device) == "cuda"
+    out = rounds.rounds_grids(grid, None, plain, None, fb_spec=spec)["fb"]
+    torch.cuda.synchronize()
+    assert rsk.run_rounds.launches == launches[1] + 1
+    assert float(out["completed_jobs"].min()) > 0
 
 
 # ------------------------------------------- attention kernels on the card

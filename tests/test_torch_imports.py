@@ -33,7 +33,9 @@ COPIES = ["core/jobs.py", "core/profiles.py", "core/cluster.py",
           "core/provision.py", "core/baselines.py", "sim/pump.py",
           "sim/engine.py", "sim/traces.py", "sim/contracts.py",
           "sim/__init__.py", "core/__init__.py", "serving/autoscaler.py",
-          "configs/__init__.py", "configs/base.py"] + [
+          "configs/__init__.py", "configs/base.py", "sim/faults.py",
+          "core/spec.py", "core/lifecycle.py", "core/runtime_bridge.py",
+          "serving/replay.py"] + [
     f"configs/{arch}.py" for arch in ARCH_IDS]
 # The one substitution outside import lines: get_config imports the arch
 # module by a string name, which must name the port's copy.
@@ -68,7 +70,9 @@ def test_port_imports_no_jax_and_no_reference():
                "repro_torch.serving.autoscaler, "
                "repro_torch.models.transformer, repro_torch.kernels.ops, "
                "repro_torch.models.mamba2, repro_torch.kernels.ssd_scan, "
-               "repro_torch.launch.serve; "
+               "repro_torch.launch.serve, repro_torch.sim.faults, "
+               "repro_torch.core.runtime_bridge, "
+               "repro_torch.serving.replay; "
                "from repro_torch.configs import all_configs; all_configs()")
 
 

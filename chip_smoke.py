@@ -120,12 +120,35 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    32, MTBF 2 / 6 / 24 / 96 h): its rounds rows and
                    live_ledger_exact. Wall, outer steps, the host loop's
                    share and one step's device profile
+  scan             mode="scan" (the fixed-dt engine: plain tensor code, no
+                   kernel) over the JAX package's scan benchmark: three
+                   two-week workloads x 15 FB / FLB-NUB points, float32;
+                   every row equal to the JAX package's
+                   (results/BENCH_sweep.json's rows and SCAN_EXPECTED:
+                   counts exact, integrals rtol 1e-5), workload 0 inside
+                   CONTRACTS["scan"] of the event engine; the wall split
+                   into pack and engine, substeps per policy, the host
+                   loop's share and one substep's device profile
+  scenarios        a generated ScenarioGrid at width 1024 (205 seeds x 5
+                   points, two weeks, 3000 jobs a lane, the scenario
+                   benchmark's parameter ramps) through
+                   run_sweep_workloads: 2 round_step launches (615 FB and
+                   410 FLB-NUB lanes); every lane's moments, a second
+                   synthesis equal, the CPU's synthesis equal up to the
+                   transforms' rounding, every row equal to the plain
+                   step's on the same batch (counts exact, integrals rtol
+                   1e-5), lanes {0, W/2, W-1} inside CONTRACTS["rounds"]
+                   of the event engine, and at width 45 the kernel's rows
+                   equal to the plain step's; synth /
+                   pack / engine walls, outer steps, each launch's device
+                   ms and bound
   live             replay() of the live benchmark's nasa+worldcup lane
                    inside CONTRACTS["live"] of the event engine and equal
-                   to the JAX package's row and counts, and the faults
-                   benchmark's serving chaos lane (MTBF 2 h, max_queue
-                   64): requests completed, shed, grant retries; host
-                   walls
+                   to the JAX package's row and counts, its synth_ws lane
+                   (drawn by the port) inside CONTRACTS["live"], and the
+                   faults benchmark's serving chaos lane (MTBF 2 h,
+                   max_queue 64): requests completed, shed, grant
+                   retries; host walls
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba), times,
                    bound; attention and decode one row per dtype on its
@@ -134,7 +157,7 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    generate_mamba, ssd_scan_f32: serve_mamba); round_step per
                    one-launch run of the sweep, with its outer steps, the
                    one-step entry's time per launch and the same for the
-                   coalesced sweep
+                   coalesced sweep, and the scenario batch's two runs
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -150,6 +173,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -161,6 +185,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.jobs import Job  # noqa: E402
+from repro_torch.core.profiles import scale_profile  # noqa: E402
 from repro_torch.core.pbj_manager import PBJPolicyParams  # noqa: E402
 from repro_torch.core.runtime_bridge import LiveCloud  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
@@ -174,6 +199,8 @@ from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.replay import replay  # noqa: E402
 from repro_torch.sim import rounds as roundslib  # noqa: E402
+from repro_torch.sim import scan as scanlib  # noqa: E402
+from repro_torch.sim import scenarios as scenarioslib  # noqa: E402
 from repro_torch.sim import sweep as sweeplib  # noqa: E402
 from repro_torch.sim import traces  # noqa: E402
 from repro_torch.sim.capacity import headline_queries  # noqa: E402
@@ -186,8 +213,8 @@ from repro_torch.sim.faults import (burst_schedule,  # noqa: E402
                                     exponential_schedule, merge_schedules)
 from repro_torch.sim.pump import DecisionLedger  # noqa: E402
 from repro_torch.sim.scan import FBGrid  # noqa: E402
-from repro_torch.sim.sweep import (ScanOptions, _build,  # noqa: E402
-                                   _pack_rounds, paper_grid,
+from repro_torch.sim.sweep import (ScanOptions, SweepPoint,  # noqa: E402
+                                   _build, _pack_rounds, paper_grid,
                                    run_sweep_workloads)
 
 DAY = 24 * 3600.0
@@ -225,6 +252,10 @@ PROBE_STEPS = (1024, 5120)
 # Clock cycles of the spin queued ahead of a timed run (about 25 ms on an
 # H100): the host enqueues the timed calls while the device spins.
 SPIN_CYCLES = 50_000_000
+# A profiler trace (``marked_profile``) leads its work with this many spin
+# kernels of this many clock cycles each (about 1 ms in all on an H100).
+PROFILE_MARKS = 256
+PROFILE_MARK_CYCLES = 1_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -243,9 +274,11 @@ class OpCount(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.calls = 0          # aten calls (each one kernel launch or less)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        self.calls += 1
         name = func.overloadpacket.__name__.rstrip("_")
         if name in REDUCTION_OPS:
             self.ops += args[0].numel()
@@ -387,7 +420,7 @@ def kernel_vs_plain(policy, trace, grid, pk, spec, horizon):
     does: at every chunk the kernel and the plain version start from the
     same state; the plain result carries on for the live lanes. Then
     time both, and take the bound, at the state of the middle chunk."""
-    prm = roundslib._rounds_prm_tree(policy, grid, 1)
+    prm = scanlib._lane_prm_tree(policy, grid, 1)
     ctx = roundslib._lane_ctx(policy, prm, pk)
     sc, win = roundslib._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
     inputs = rsk.lane_inputs(policy, ctx)
@@ -674,7 +707,7 @@ def chaos_phase(device, smi):
     rows = lane_rows(out)
     # One outer step's device share: a profile of one plain step from
     # the lanes' startup state.
-    prm = roundslib._rounds_prm_tree("fb", grid, len(scheds))
+    prm = scanlib._lane_prm_tree("fb", grid, len(scheds))
     ctx = roundslib._lane_ctx("fb", prm, pk)
     sc0, win0 = roundslib._startup("fb", ctx, spec, pk.ws0[prm["w_idx"]])
     ftab = rsk.fault_table(ctx)
@@ -783,10 +816,11 @@ def hold_to(got, want, label):
             raise AssertionError(f"{label} {k}: {g}, expected {v}")
 
 
-def live_phase(smi):
+def live_phase(device, smi):
     """The live tier: replay() of the live benchmark's nasa+worldcup lane
     (autoscaler + VirtualReplica on LiveCloud's pump) inside
-    CONTRACTS["live"] of the event engine, and the faults benchmark's
+    CONTRACTS["live"] of the event engine, its synth_ws lane (drawn by
+    the port's generators on the card), and the faults benchmark's
     serving chaos lane; host work, on the port's event pump."""
     bench = json.loads((ROOT / "results" / "BENCH_faults.json"
                         ).read_text())
@@ -816,13 +850,491 @@ def live_phase(smi):
     chaos_s = time.perf_counter() - t0
     serving = replay_summary(res_c)
     hold_to(serving, SERVE_CHAOS_EXPECTED, "serving chaos")
+    # The live benchmark's synth_ws lane (benchmarks/run.py, its lines
+    # 938-945), drawn by the port: other draws than the JAX package's.
+    sgrid = scenarioslib.ScenarioGrid(
+        seeds=(5,), pbj=scenarioslib.PBJParams(
+            nodes=float(BENCH_FAULTS_C), utilization=0.45, n_jobs=90.0),
+        ws=scenarioslib.WSParams(peak=float(BENCH_FAULTS_PEAK),
+                                 base_mean=3.0),
+        duration=horizon, max_jobs=200, ws_step=900.0)
+    (sjobs, sws), = scenarioslib.sample_workloads(
+        scenarioslib.synthesize(sgrid, device), [0])
+    ref_s = run_sim(build_fb(BENCH_FAULTS_C, params=PBJPolicyParams(
+        checkpoint_preempt=True)), clone_jobs(sjobs), sws, duration=horizon,
+        name="event")
+    t0 = time.perf_counter()
+    res_s = replay(clone_jobs(sjobs), sws, BENCH_FAULTS_C, duration=horizon,
+                   serve_dt=30.0)
+    synth_s = time.perf_counter() - t0
+    violations = CONTRACTS["live"].check_live(
+        res_s.row.row(), ref_s.row(), res_s.derived_demand,
+        res_s.trace_demand, horizon)
+    if violations:
+        raise AssertionError(f"live synth_ws contract violated: "
+                             f"{violations}")
+    s_mae, s_dpeak = demand_drift(res_s.derived_demand, res_s.trace_demand,
+                                  horizon)
     emit("live", card=smi, host_wall_s=live_s, event_wall_s=event_s,
-         note="host work on the port's event pump; the synth_ws lane "
-              "waits for sim/scenarios.py (ROADMAP A5)",
+         note="host work on the port's event pump",
          lane="nasa+worldcup", event=ref.row(), **live,
          demand_mae_rel=mae, demand_peak_rel=dpeak, contract_ok=True,
+         synth_ws=dict(jobs=len(sjobs), ws_steps=len(sws), event=ref_s.row(),
+                       host_wall_s=synth_s, demand_mae_rel=s_mae,
+                       demand_peak_rel=s_dpeak, contract_ok=True,
+                       **replay_summary(res_s)),
          serving_chaos=dict(mtbf_h=2.0, max_queue=64, host_wall_s=chaos_s,
                             **serving))
+
+
+# --------------------------- the scan engine and generated scenario batches
+
+# The JAX package's scan benchmark (benchmarks/run.py, its lines 174-195):
+# three two-week workloads and 15 FB / FLB-NUB points. Its rows in
+# results/BENCH_sweep.json (``comparisons[*].fast``) are today's reference
+# rows (checked against repro.sim.scan.scan_grids on the CPU); they hold
+# no adjust events or mean times, so those come from the same reference
+# run: per point, per workload (adjust_events, avg_turnaround,
+# avg_execution).
+SCAN_EXPECTED = {
+    "FB(C=128)": (
+        (1456, 3302.60474, 1073.77832), (1488, 16398.4609, 2136.40942),
+        (1447, 10975.9229, 1096.75244)),
+    "FB(C=154)": (
+        (1456, 3191.77954, 1125.77795), (1488, 18864.9219, 2162.91406),
+        (1451, 6014.98633, 1130.70715)),
+    "FB(C=192)": (
+        (1456, 2108.18237, 1125.77795), (1488, 7491.22949, 2162.91406),
+        (1453, 3203.61279, 1130.70715)),
+    "FB(C=230)": (
+        (1456, 1870.64893, 1125.77795), (1488, 5740.03271, 2162.91406),
+        (1454, 2366.90918, 1130.70715)),
+    "FB(C=256)": (
+        (1456, 1825.70154, 1125.77795), (1488, 4541.83643, 2162.91406),
+        (1456, 2081.89795, 1130.70715)),
+    "FLB-NUB(B=13)": (
+        (3091, 1184.93408, 672.290527), (3145, 2637.78369, 2023.38977),
+        (3095, 1162.30469, 682.404907)),
+    "FLB-NUB(B=25)": (
+        (3089, 1172.82764, 672.290527), (3146, 2633.26367, 2023.38977),
+        (3095, 1162.42004, 682.404907)),
+    "FLB-NUB(B=51)": (
+        (3097, 1182.0509, 672.290527), (3139, 2608.51758, 2023.38977),
+        (3093, 1168.98914, 682.404907)),
+    "FLB-NUB(B=102)": (
+        (3084, 1121.28992, 672.290527), (3156, 2576.1377, 2022.96692),
+        (3103, 1139.25562, 682.404907)),
+    "FLB-NUB(B=154)": (
+        (3093, 1044.17993, 672.147522), (3157, 2552.86841, 2022.96692),
+        (3102, 1058.57996, 682.404907)),
+    "FLB-NUB(L=15min)": (
+        (3785, 1147.79041, 672.147522), (3725, 2599.63867, 2023.13489),
+        (3798, 1126.55493, 682.55188)),
+    "FLB-NUB(L=30min)": (
+        (3327, 1169.25305, 672.290527), (3354, 2604.95068, 2023.13489),
+        (3354, 1125.65527, 682.404907)),
+    "FLB-NUB(L=60min)": (
+        (3089, 1172.82764, 672.290527), (3146, 2633.26367, 2023.38977),
+        (3095, 1162.42004, 682.404907)),
+    "FLB-NUB(L=120min)": (
+        (2953, 1192.62256, 672.147522), (3029, 2619.28516, 2022.96692),
+        (2958, 1144.67419, 682.55188)),
+    "FLB-NUB(L=240min)": (
+        (2888, 1146.93408, 671.856995), (2961, 2699.93311, 2022.96692),
+        (2888, 1250.01147, 682.404907)),
+}
+
+
+def scan_workloads():
+    """The scan benchmark's workloads: both §6.2 batch logs, and NASA iPSC
+    (seed 1) under twice the World Cup demand."""
+    ws_nasa = traces.worldcup98(seed=0, peak_vms=128)
+    return [(traces.nasa_ipsc(seed=0), ws_nasa),
+            (traces.sdsc_blue(seed=0), traces.worldcup98(seed=1,
+                                                         peak_vms=128)),
+            (traces.nasa_ipsc(seed=1), scale_profile(ws_nasa, 2.0))]
+
+
+def scan_points():
+    """Fig. 13 capacities, Fig. 14 pool sizes and Fig. 18 leases."""
+    cs = [int(round(256 * f)) for f in (0.5, 0.6, 0.75, 0.9, 1.0)]
+    return ([SweepPoint("fb", capacity=c, label=f"FB(C={c})") for c in cs]
+            + [SweepPoint("flb_nub", lb_pbj=B - min(12, B - 1),
+                          lb_ws=min(12, B - 1), label=f"FLB-NUB(B={B})")
+               for B in (13, 25, 51, 102, 154)]
+            + [SweepPoint("flb_nub", lb_pbj=13, lb_ws=12,
+                          lease_seconds=60.0 * m, label=f"FLB-NUB(L={m}min)")
+               for m in (15, 30, 60, 120, 240)])
+
+
+def hold_scan_rows(rows, bench):
+    """Every (point, workload) row against the JAX package's: completed
+    jobs, kills, peak, adjust events and window overflow exact; node-hours
+    and the two mean times at rtol 1e-5. Returns the rows checked."""
+    names = bench["grid"]
+    rtol = INTEGRAL_RTOL[torch.float32]
+    for c in bench["comparisons"]:
+        w, name = c["workload"], c["point"]
+        row = rows[w][names.index(name)]
+        adj, turn, exe = SCAN_EXPECTED[name][w]
+        want = dict(c["fast"], adjust_events=adj, avg_turnaround=turn,
+                    avg_execution=exe)
+        for k, v in want.items():
+            ok = (np.isclose(row[k], v, rtol=rtol, atol=0)
+                  if k in INTEGRAL_ROW else row[k] == v)
+            if not ok or row["system"] != name:
+                raise AssertionError(f"scan {name} workload {w} {k}: "
+                                     f"{row[k]}, the JAX package {v}")
+    return len(bench["comparisons"])
+
+
+def scan_phase(device, smi):
+    """mode="scan" at the JAX package's scan benchmark's size on the card:
+    the host loop of small tensor ops (no kernel), rows held to the JAX
+    package's, CONTRACTS["scan"] against the event engine on workload 0,
+    the wall split into pack and engine, the host loop's share and one
+    substep's device profile per policy."""
+    bench = json.loads((ROOT / "results" / "BENCH_sweep.json").read_text())
+    workloads, points = scan_workloads(), scan_points()
+    horizon = traces.TWO_WEEKS
+    if [p.name() for p in points] != bench["grid"]:
+        raise AssertionError("the scan grid differs from BENCH_sweep.json's")
+
+    def run():
+        return run_sweep_workloads(points, workloads, horizon, mode="scan",
+                                   device=device)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the scan engine launched a kernel: {counts}")
+    checked = hold_scan_rows(rows, bench)
+    # The split: pack and engine stages synchronized; inside the engine
+    # the host time of the two policies' loops (no synchronize).
+    loop = {"s": 0.0}
+    simulate = scanlib._simulate
+
+    def timed_loop(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = simulate(*args, **kwargs)
+        loop["s"] += time.perf_counter() - t1
+        return out
+
+    scanlib._simulate = timed_loop
+    try:
+        split = wall_split(run, (("pack", sweeplib, "_pack_scan"),
+                                 ("engine", scanlib, "scan_grids")))
+    finally:
+        scanlib._simulate = simulate
+    # Substeps and one substep's device profile per policy, at the
+    # lanes' startup window (a substep runs the same ops on any data).
+    (_, _, fb, flb, fb_pk, flb_pk, fb_spec, flb_spec) = sweeplib._pack_scan(
+        points, workloads, horizon, ScanOptions(), device)
+    per_policy = {}
+    for policy, grid, pk, spec in (("fb", fb, fb_pk, fb_spec),
+                                   ("flb_nub", flb, flb_pk, flb_spec)):
+        prm = scanlib._lane_prm_tree(policy, grid, len(workloads))
+        ctx = scanlib._lane_ctx(policy, prm, pk)
+        jidx, _, owned, pool, run_, rem, start_t, acc = scanlib._startup(
+            policy, ctx, spec)
+        window = scanlib._gather_window(ctx, jidx)
+        state = (owned, pool, run_, torch.zeros_like(run_), rem, start_t,
+                 acc)
+        s_idx = torch.zeros((), dtype=pk.ws.dtype, device=device)
+
+        def substep():
+            return scanlib._substep(policy, ctx, spec, window, state, s_idx,
+                                    ctx["tr_ws"][:, 0],
+                                    ctx["tr_ws_changed"][:, 0])
+
+        with OpCount() as count:
+            substep()
+        n_sub = int(pk.ws.shape[1])
+        per_policy[policy] = dict(
+            lanes=int(prm["w_idx"].shape[0]), dt=spec.dt,
+            substeps=spec.n_steps, substeps_run=n_sub,
+            chunk_len=spec.chunk_len, window=spec.window,
+            aten_calls_per_substep=count.calls, one_substep=breakdown(substep))
+    # CONTRACTS["scan"] against the event engine on workload 0.
+    jobs, ws = workloads[0]
+    t0 = time.perf_counter()
+    event = [run_sim(_build(p), clone_jobs(jobs), ws, horizon,
+                     name=p.name()).row() for p in points]
+    event_s = time.perf_counter() - t0
+    violations = check_fidelity(rows[0], event)
+    if violations:
+        raise AssertionError(f"scan contract violated: {violations}")
+    emit("scan", card=smi, points=len(points), workloads=len(workloads),
+         horizon_days=horizon / DAY, dtype="float32", wall_s=wall_s,
+         wall_split=split, host_loop_s=loop["s"],
+         host_loop_share=loop["s"] / split["wall_s"], policies=per_policy,
+         kernel_launches=counts, rows_held_to_reference=checked,
+         contract=CONTRACTS["scan"].__dict__, event_wall_s=event_s,
+         rows_nasa=rows[0])
+
+
+# The JAX package's scenario benchmark at width 1024 (benchmarks/run.py,
+# its lines 598-690): 205 seeds x 5 points, two weeks, 3000 jobs a lane,
+# the parameter ramps of its lines 668-678.
+SCENARIO_WIDTH = 1024
+SCENARIO_MAX_JOBS = 3000
+SCENARIO_CHECK_WIDTH = 45        # kernel rows vs the plain step's
+
+
+def scenario_points():
+    return [SweepPoint("fb", capacity=96, label="FB(C=96)"),
+            SweepPoint("fb", capacity=128, label="FB(C=128)"),
+            SweepPoint("fb", capacity=160, label="FB(C=160)"),
+            SweepPoint("flb_nub", lb_pbj=13, lb_ws=12, label="FLB-NUB(B=25)"),
+            SweepPoint("flb_nub", lb_pbj=13, lb_ws=12, lease_seconds=1800.0,
+                       label="FLB-NUB(L=30min)")]
+
+
+def scenario_grid(width, n_points):
+    W = max(1, int(round(width / n_points)))
+    pbj = scenarioslib.PBJParams(
+        nodes=128.0, utilization=np.linspace(0.35, 0.8, W),
+        n_jobs=np.round(np.linspace(1800.0, 2900.0, W)),
+        alpha=np.linspace(0.15, 0.7, W),
+        burst_frac=np.linspace(0.06, 0.25, W),
+        diurnal_depth=np.linspace(0.5, 0.95, W))
+    ws = scenarioslib.WSParams(peak=np.round(np.linspace(32.0, 128.0, W)),
+                               base_mean=np.linspace(8.0, 14.0, W),
+                               surge_ratio=np.linspace(2.0, 6.0, W))
+    return scenarioslib.ScenarioGrid(seeds=tuple(range(W)), pbj=pbj, ws=ws,
+                                     duration=traces.TWO_WEEKS,
+                                     max_jobs=SCENARIO_MAX_JOBS)
+
+
+def hold_moments(synth, grid):
+    """Every lane: job count exact, arrivals sorted and +inf padded,
+    sizes powers of two in [1, nodes], the realized utilization within
+    1e-3 of the lane's, the WS peak exact and the floor 1 VM."""
+    p, q = grid.pbj, grid.ws
+    for w in range(grid.n_lanes):
+        n = int(synth.n_jobs[w])
+        sub, size = synth.submit[w], synth.size[w][:n]
+        rt, v = synth.runtime[w][:n], synth.ws_values[w]
+        util = float((size * rt.astype(np.float64)).sum()) / (
+            p.nodes * grid.duration)
+        bad = [k for k, ok in (
+            ("count", n == int(p.n_jobs[w])),
+            ("sorted", bool(np.all(np.diff(sub[:n]) >= 0))),
+            ("padding", bool(np.all(np.isinf(sub[n:])))),
+            ("sizes", bool(np.all((size >= 1) & (size <= p.nodes))
+                           and np.all(np.log2(size) ==
+                                      np.round(np.log2(size))))),
+            ("utilization", abs(util - float(np.float32(
+                p.utilization[w]))) <= 1e-3),
+            ("peak", float(v.max()) == float(q.peak[w])),
+            ("floor", float(v.min()) >= 1.0)) if not ok]
+        if bad:
+            raise AssertionError(f"scenario lane {w}: {bad} (util {util})")
+
+
+def synth_close(want, got, rtol=1e-5):
+    """Two syntheses of one grid from the same (CPU) draws, made on
+    different devices: counts and the padding exact, submit and runtime
+    within ``rtol`` (the devices' float32 sin / log may differ in the
+    last bit), sizes exact per group of arrivals within ``rtol`` of each
+    other, WS demands within 1 VM everywhere, equal at >= 99.9 % of the
+    steps, peak exact. Returns how many values differ at all."""
+    if not np.array_equal(got.n_jobs, want.n_jobs):
+        raise AssertionError("synthesis cuda vs cpu: n_jobs differ")
+    diff = dict(submit=0, size=0, runtime=0, ws_values=0)
+    for w in range(len(want.n_jobs)):
+        n = int(want.n_jobs[w])
+        sub_r, sz_r, rt_r = (x[w] for x in (want.submit, want.size,
+                                            want.runtime))
+        sub_p, sz_p, rt_p = (x[w] for x in (got.submit, got.size,
+                                            got.runtime))
+        bad = []
+        if not (np.allclose(sub_p[:n], sub_r[:n], rtol=rtol, atol=0)
+                and np.all(np.isinf(sub_p[n:])) and np.all(sz_p[n:] == 0)
+                and np.all(rt_p[n:] == 0)):
+            bad.append("submit")
+        brk = np.nonzero(np.diff(sub_r[:n]) > rtol * sub_r[1:n])[0] + 1
+        for a, b in zip(np.r_[0, brk], np.r_[brk, n]):
+            pr = sorted(zip(sz_r[a:b], rt_r[a:b]))
+            pp = sorted(zip(sz_p[a:b], rt_p[a:b]))
+            if [x for x, _ in pr] != [x for x, _ in pp]:
+                bad.append(f"sizes {a}:{b}")
+            elif not np.allclose([r for _, r in pp], [r for _, r in pr],
+                                 rtol=rtol, atol=0):
+                bad.append(f"runtime {a}:{b}")
+        v_r, v_p = want.ws_values[w], got.ws_values[w]
+        if not (np.abs(v_p - v_r).max() <= 1.0
+                and np.mean(v_p == v_r) >= 0.999 and v_p.max() == v_r.max()):
+            bad.append("ws_values")
+        if bad:
+            raise AssertionError(f"synthesis cuda vs cpu, lane {w}: {bad}")
+        diff["submit"] += int((sub_p[:n] != sub_r[:n]).sum())
+        diff["size"] += int((sz_p[:n] != sz_r[:n]).sum())
+        diff["runtime"] += int((rt_p[:n] != rt_r[:n]).sum())
+        diff["ws_values"] += int((v_p != v_r).sum())
+    return diff
+
+
+def scenarios_phase(device, smi):
+    """A generated scenario batch at width 1024 through
+    run_sweep_workloads on the card: one round-step launch per policy
+    over 615 FB and 410 FLB-NUB lanes; the lanes' moments, determinism,
+    the card's synthesis against the CPU's, every row of the two launches
+    against the plain step's on the same batch, sampled lanes against
+    the event engine under CONTRACTS["rounds"], and at width 45 the
+    kernel's rows against the plain step's."""
+    points = scenario_points()
+    grid = scenario_grid(SCENARIO_WIDTH, len(points))
+    W, horizon = grid.n_lanes, grid.duration
+    t0 = time.perf_counter()
+    synth = scenarioslib.synthesize(grid, device)
+    synth_first_s = time.perf_counter() - t0
+    again = scenarioslib.synthesize(grid, device)
+    for f in ("submit", "size", "runtime", "n_jobs", "ws_values"):
+        if not np.array_equal(getattr(synth, f), getattr(again, f)):
+            raise AssertionError(f"synthesize is not deterministic: {f}")
+    hold_moments(synth, grid)
+    t0 = time.perf_counter()
+    on_cpu = scenarioslib.synthesize(grid, "cpu")
+    synth_cpu_s = time.perf_counter() - t0
+    synth_diff = synth_close(on_cpu, synth)
+
+    def run():
+        return run_sweep_workloads(points, grid, mode="rounds",
+                                   device=device)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = rsk.outer_steps()
+    if counts["round_step"] != 2 or any(v for k, v in counts.items()
+                                        if k != "round_step"):
+        raise AssertionError(f"the scenario batch's launches: {counts}, "
+                             f"expected 2 round_step runs")
+    truncated = [r["system"] for rs in rows for r in rs if r["truncated"]]
+    if truncated:
+        raise AssertionError(f"scenario rows truncated: {truncated}")
+    # The split (synth / pack / engine, each synchronized) and each
+    # launch's device time (CUDA events) and its inputs for the bound.
+    launches = []
+    run_rounds = rsk.run_rounds
+
+    def recorded(jobs, rises, wstab, prm, sc, win, **kw):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        out = run_rounds(jobs, rises, wstab, prm, sc, win, **kw)
+        stop.record()
+        launches.append(((jobs, rises, wstab, prm), sc, win, out, kw,
+                         start, stop))
+        return out
+
+    recorded.launches = run_rounds.launches
+    rsk.run_rounds = recorded
+    try:
+        split = wall_split(run, (("synth", scenarioslib, "synthesize"),
+                                 ("pack", sweeplib, "_pack_scenarios_grids"),
+                                 ("engine", roundslib, "rounds_grids")))
+    finally:
+        run_rounds.launches = rsk.run_rounds.launches
+        rsk.run_rounds = run_rounds
+    torch.cuda.synchronize()
+    per_launch = []
+    for inputs, sc0, win0, (sc_end, _, lane_steps), kw, start, stop in \
+            launches:
+        policy, spec = kw["policy"], kw["spec"]
+        lane_rounds = int((sc_end[:, ROUNDS_SC] - sc0[:, ROUNDS_SC]).sum())
+        with OpCount() as count:
+            rsk.chunk_step_ref(*inputs, sc0, win0, policy=policy, spec=spec)
+        ops = count.ops / (sc0.shape[0] * spec.compact_every)
+        bound_ms, bound_by = run_bound(policy, inputs, sc0, win0, sc_end,
+                                       spec, lane_rounds, ops)
+        per_launch.append(dict(
+            policy=policy, lanes=int(sc0.shape[0]),
+            job_table=int(inputs[0].shape[-1]),
+            rise_table=int(inputs[1].shape[-1]),
+            fold_table=int(inputs[2].shape[-1]),
+            input_mb=sum(x.numel() * x.element_size() for x in inputs) / 1e6,
+            outer_steps=int(lane_steps.max()),
+            outer_steps_min=int(lane_steps.min()), lane_rounds=lane_rounds,
+            device_ms=start.elapsed_time(stop), bound_ms=bound_ms,
+            bound_by=bound_by))
+    # Every row of the two launches against the plain step's on the same
+    # batch (synth equals the batch run() drew: synthesis is
+    # deterministic, checked above).
+    zero_counts()
+    t0 = time.perf_counter()
+    plain = sweeplib._sweep_rounds_generated(
+        points, grid, ScanOptions(kernel="torch"), synth=synth,
+        device=device)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_counts = read_counts()
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain step launched kernels: "
+                             f"{plain_counts}")
+    for w in range(W):
+        rows_equal(rows[w], plain[w], INTEGRAL_RTOL[torch.float32],
+                   f"scenarios width 1024 lane {w}")
+    # Sampled lanes against the event engine (CONTRACTS["rounds"]).
+    sample = sorted({0, W // 2, W - 1})
+    t0 = time.perf_counter()
+    event = run_sweep_workloads(points,
+                                scenarioslib.sample_workloads(synth, sample),
+                                horizon, mode="event", device=device)
+    event_s = time.perf_counter() - t0
+    violations = [f"lane {w} {v}" for j, w in enumerate(sample)
+                  for i in range(len(points))
+                  for v in CONTRACTS["rounds"].check_row(rows[w][i],
+                                                         event[j][i])]
+    if violations:
+        raise AssertionError(f"scenario rounds contract: {violations}")
+    # Width 45: the kernel's rows against the plain step's on the card.
+    small = scenario_grid(SCENARIO_CHECK_WIDTH, len(points))
+    walls = {}
+    out = {}
+    for name, opts in (("kernel", ScanOptions()),
+                       ("plain", ScanOptions(kernel="torch"))):
+        t0 = time.perf_counter()
+        out[name] = run_sweep_workloads(points, small, mode="rounds",
+                                        device=device, scan_options=opts)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    for w in range(small.n_lanes):
+        rows_equal(out["kernel"][w], out["plain"][w],
+                   INTEGRAL_RTOL[torch.float32], f"scenarios width 45 {w}")
+    emit("scenarios", card=smi, width=W * len(points), seeds=W,
+         points=len(points), horizon_days=horizon / DAY,
+         max_jobs=grid.max_jobs, dtype="float32", wall_s=wall_s,
+         synth_first_s=synth_first_s, wall_split=split,
+         round_step_launches=counts["round_step"], outer_steps=steps,
+         launches=per_launch,
+         kernel_device_ms=sum(x["device_ms"] for x in per_launch),
+         window_overflow_rows=sum(r["window_overflow"] > 0 for rs in rows
+                                  for r in rs),
+         deterministic=True, moments_ok=True,
+         synth_cpu={"wall_s": synth_cpu_s, "values_differing": synth_diff,
+                    "close": True},
+         plain_width_1024={"wall_s": plain_s, "rows_equal": True,
+                           "kernel_launches": plain_counts},
+         window_overflow_at=[[w, points[i].label] for w in range(W)
+                             for i in range(len(points))
+                             if rows[w][i]["window_overflow"] > 0],
+         sampled_lanes=sample,
+         event_wall_s=event_s, contract=CONTRACTS["rounds"].__dict__,
+         width_45={"lanes": small.n_lanes * len(points),
+                   "kernel_wall_s": walls["kernel"],
+                   "plain_wall_s": walls["plain"], "rows_equal": True},
+         rows_lane0=rows[0])
+    return dict(launches=counts["round_step"], outer_steps=steps,
+                per_launch=per_launch)
 
 
 # ------------------------------------------------ the serving slice (LM)
@@ -1099,14 +1611,14 @@ SPLIT_STAGES = (("pack", sweeplib, "_pack_rounds"),
                 ("kernel", rsk, "run_rounds"))
 
 
-def wall_split(fn):
+def wall_split(fn, stages=SPLIT_STAGES):
     """Where one call of ``fn`` (a sweep or the headline queries) spends
-    its wall: each stage of ``SPLIT_STAGES`` is wrapped with a
-    synchronize on both sides and its host wall summed; ``other_s`` is
-    the rest (DCS / EC2 rows, row assembly, copies to the host). The
-    synchronizes take away any overlap of host and device, so this is a
-    call of its own, beside the unwrapped wall."""
-    spent = {"pack": 0.0, "startup": 0.0, "kernel": 0.0}
+    its wall: each stage of ``stages`` is wrapped with a synchronize on
+    both sides and its host wall summed; ``other_s`` is the rest (DCS /
+    EC2 rows, row assembly, copies to the host). The synchronizes take
+    away any overlap of host and device, so this is a call of its own,
+    beside the unwrapped wall."""
+    spent = {stage: 0.0 for stage, _, _ in stages}
     saved = []
 
     def wrap(stage, orig):
@@ -1122,7 +1634,7 @@ def wall_split(fn):
             timed.launches = orig.launches
         return timed
 
-    for stage, module, name in SPLIT_STAGES:
+    for stage, module, name in stages:
         orig = getattr(module, name)
         saved.append((module, name, orig))
         setattr(module, name, wrap(stage, orig))
@@ -1141,30 +1653,61 @@ def wall_split(fn):
                 other_s=wall - sum(spent.values()))
 
 
-def breakdown(fn, sum_of=None):
+@contextmanager
+def marked_profile():
+    """A ``torch.profiler`` trace of host and device whose work is led by
+    ``PROFILE_MARKS`` short spin kernels, the marks. On an H100 a trace
+    loses the device records of its first few kernels, the more the
+    longer its process has run: a count of records at its head, not a
+    span of time (``tools/profiler_record_loss.py`` shows it). The marks
+    take that loss: while a trace keeps one mark, it kept every record
+    after it. ``device_kernels`` leaves them out."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKS):
+            torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_kernels(prof):
+    """The device kernels of a ``marked_profile`` trace, its marks left
+    out, and how many marks the trace lost: ``(events, lost)``. With
+    ``lost < PROFILE_MARKS`` every record of the work was kept."""
+    from torch.autograd import DeviceType
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    kept = sum(ev.count for ev in events if "spin_kernel" in ev.key)
+    return ([ev for ev in events if "spin_kernel" not in ev.key],
+            PROFILE_MARKS - kept)
+
+
+def breakdown(fn, sum_of=None, tries=5):
     """Where one call of ``fn`` spends its time: its host wall (host
     clock around the call and a synchronize, after a warm-up call), the
-    device time of all its kernels from a ``torch.profiler`` trace of a
+    device time of all its kernels from a ``marked_profile`` trace of a
     second call (None when the trace holds none), the busy share
     device / wall, the five kernels with the most device time, and for
     each ``key: name part`` of ``sum_of`` the device ms of the kernels
-    whose name holds that part, under ``key``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    whose name holds that part, under ``key``. A trace that lost every
+    mark is taken again, up to ``tries`` times; ``marks_lost`` is the last
+    one's count (at ``PROFILE_MARKS`` the device times may be short)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with marked_profile() as prof:
+            fn()
+        events, lost = device_kernels(prof)
+        if lost < PROFILE_MARKS:
+            break
     per_kernel = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue              # host ops: their kernels are listed too
+    for ev in events:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
@@ -1174,7 +1717,7 @@ def breakdown(fn, sum_of=None):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if device_ms else None,
-                top_kernels_ms=top,
+                top_kernels_ms=top, marks_lost=lost,
                 **{key: sum(ms for name, ms in per_kernel.items()
                             if part in name)
                    for key, part in (sum_of or {}).items()})
@@ -1182,32 +1725,25 @@ def breakdown(fn, sum_of=None):
 
 def kernel_launches(fn, part, calls=3, tries=10):
     """Device kernels whose name holds ``part`` per call of ``fn``, from a
-    ``torch.profiler`` trace of host and device over ``calls`` calls, as
-    ``breakdown`` takes it. Every call launches the same kernels, so a
-    trace that holds no device kernel at all, or a count that ``calls``
-    does not divide, lost records (now and then one does on an H100: it
-    held 0 and 2 of 3 in two runs): such a trace is taken again, up to
-    ``tries`` times; then the count was not measured, and this raises."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``marked_profile`` trace of ``calls`` calls, and the marks that trace
+    lost: ``(per_call, marks_lost)``. A trace counts only if it
+    kept a mark and ``calls`` divides its count (every call launches the
+    same kernels); any other is taken again, up to ``tries`` times; then
+    the count was not measured, and this raises."""
     seen = []
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with marked_profile() as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA]
+        events, lost = device_kernels(prof)
         n = sum(ev.count for ev in events if part in ev.key)
-        if events and n % calls == 0:
-            return n / calls
-        seen.append(n if events else None)
+        if lost < PROFILE_MARKS and n % calls == 0:
+            return n / calls, lost
+        seen.append((n, lost))
     raise AssertionError(f"{tries} profiler traces of {calls} calls lost "
-                         f"device records (kernels whose name holds {part!r}"
-                         f" per trace, None: no device kernel at all: "
-                         f"{seen}): the launches were not counted")
+                         f"device records ((kernels whose name holds "
+                         f"{part!r}, marks lost of {PROFILE_MARKS}) per "
+                         f"trace: {seen}): the launches were not counted")
 
 
 # The prefill profiles' device ms of the model kernels, by name part.
@@ -1468,13 +2004,13 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
         core_ms = 1e3 * flops / CUDA_CORE_FLOPS
         check.update(cuda_core_bound_ms=core_ms,
                      cuda_core_bound_fraction=core_ms / ms)
-    launches = kernel_launches(kernel, "ssd_")
+    launches, marks_lost = kernel_launches(kernel, "ssd_")
     out = dict(batch=batch, seq=seq, heads=nh, head_dim=p, state=n,
                chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
                strong_decay=strong_decay, a_min=float(a.min()), **check,
                ms=ms, ms_device_bound=device_bound,
                kernel_launches_per_call=launches,
-               bound_fraction=bound_ms / ms,
+               profile_marks_lost=marks_lost, bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 2)[0], bound_ms=bound_ms,
                bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops)
     del x, a, B, C, s0, y, sT, want_y, want_s
@@ -1718,8 +2254,12 @@ def main() -> int:
     # last, so that its profile of one plain step comes after the model
     # phases' profiler checks
     chaos_phase(device, smi)
+    # --- the scan engine (no kernel) and a generated scenario batch at
+    # width 1024 (one round_step launch per policy)
+    scan_phase(device, smi)
+    scen = scenarios_phase(device, smi)
     zero_counts()
-    live_phase(smi)
+    live_phase(device, smi)
     if any(read_counts().values()):
         raise AssertionError(f"the live tier launched: {read_counts()}")
 
@@ -1766,6 +2306,13 @@ def main() -> int:
         / steps_c,
         "coalesced_chunk_ms": per_launch("kernel_ms_per_launch", f32_c),
         "coalesced_max_abs_err": max(r["max_abs_err"] for r in f32_c),
+        # the generated scenario batch at width 1024: one run per policy
+        # (615 FB and 410 FLB-NUB lanes), its device ms and bound
+        "scenario_launches": scen["launches"],
+        "scenario_outer_steps": scen["outer_steps"],
+        "scenario_ms": [x["device_ms"] for x in scen["per_launch"]],
+        "scenario_bound_ms": [x["bound_ms"] for x in scen["per_launch"]],
+        "scenario_lanes": [x["lanes"] for x in scen["per_launch"]],
     }]}
     # One row per attention kernel and dtype, at its path's shape, the
     # mean of its local (window 4096) and global layers: flash_attention

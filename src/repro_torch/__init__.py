@@ -7,8 +7,9 @@ The counterpart of the JAX package ``repro``, module for module:
                          the live tier's ``LiveCloud`` (runtime_bridge)
   repro_torch.sim      — traces, the event engine, the event-rounds
                          engine (with the chaos tier's fault stops,
-                         ``faults.py``), the sweep and the capacity
-                         queries
+                         ``faults.py``), the fixed-dt scan engine,
+                         generated scenario batches (``scenarios.py``),
+                         the sweep and the capacity queries
   repro_torch.configs  — the architecture configs (copied)
   repro_torch.models   — dense decoder LMs (gemma2, smollm, qwen) and
                          Mamba2 SSMs: prefill and decode over KV / SSM

@@ -55,9 +55,10 @@ import torch
 from repro_torch import compat
 from repro_torch.core.jobs import Job
 from repro_torch.core.profiles import step_points
-from repro_torch.sim.scan import (FBGrid, FLBGrid, _prm_tree, _size_classes,
-                                  fb_actions, flb_actions, pack_job_table,
-                                  resolve_pack_dtype, stable_compact)
+from repro_torch.sim.scan import (FBGrid, FLBGrid, _lane_prm_tree,
+                                  _size_classes, fb_actions, flb_actions,
+                                  pack_job_table, resolve_pack_dtype,
+                                  stable_compact)
 
 __all__ = [
     "PackedEventWorkloads", "RoundsSpec", "pack_event_workloads",
@@ -912,21 +913,6 @@ def _simulate_rounds(policy: str, prm: Dict, pk: PackedEventWorkloads,
     }
 
 
-def _rounds_prm_tree(policy: str, grid, n_workloads: int
-                     ) -> Dict[str, torch.Tensor]:
-    """The grid's per-point scalars broadcast over the flattened
-    (trace × point) lanes, lane ``w·P + p``, with each lane's workload
-    row ``w_idx`` and point index ``p_idx``."""
-    P = int(grid.lease.shape[0])
-    dev = grid.lease.device
-    p_idx = torch.arange(P, device=dev).repeat(n_workloads)
-    w_idx = torch.arange(n_workloads, device=dev).repeat_interleave(P)
-    prm = {k: v[p_idx] for k, v in _prm_tree(policy, grid).items()}
-    prm["p_idx"] = p_idx
-    prm["w_idx"] = w_idx
-    return prm
-
-
 def rounds_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
                  fb_packed: Optional[PackedEventWorkloads],
                  flb_packed: Optional[PackedEventWorkloads], *,
@@ -948,7 +934,7 @@ def rounds_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
             continue
         W = int(packed.submit.shape[0])
         P = int(grid.lease.shape[0])
-        m = _simulate_rounds(policy, _rounds_prm_tree(policy, grid, W),
+        m = _simulate_rounds(policy, _lane_prm_tree(policy, grid, W),
                              packed, spec)
         out[policy] = {k: v.reshape(W, P) for k, v in m.items()}
     return out

@@ -1,38 +1,78 @@
-"""The shared §5 policy-step helpers of the batched engines, in PyTorch.
+"""The fixed-``dt`` scan engine and the §5 policy-step helpers, in PyTorch.
 
-Counterpart of the helper half of ``repro.sim.scan`` (its lines
-145-432): the sweep-point grids, the job-table pack, the vectorized
-first-fit, the power-of-two kill classes and the §5.1 kill selection,
-one instant of each policy's rules (``fb_actions`` / ``flb_actions``)
-and the stable window compaction. The event-rounds engine
-(``repro_torch.sim.rounds``) drives them; the fixed-``dt`` scan engine
-of the JAX package is not ported yet.
+Counterpart of ``repro.sim.scan``. Two halves:
+
+* the shared policy-step helpers (the reference's lines 145-432): the
+  sweep-point grids, the job-table pack, the vectorized first-fit, the
+  power-of-two kill classes and the §5.1 kill selection, one instant of
+  each policy's rules (``fb_actions`` / ``flb_actions``) and the stable
+  window compaction. The event-rounds engine (``repro_torch.sim.rounds``)
+  drives them too;
+* the engine (``mode="scan"`` of the sweep): ``pack_workloads`` samples
+  each workload's WS demand on a fixed substep grid, and
+  :func:`scan_grids` advances every (trace × point) lane one substep at a
+  time, the policy actions firing on lease boundaries, with the job
+  window re-gathered once per chunk of substeps.
 
 Lanes are a written-out leading axis instead of ``vmap``: every scalar
 of the JAX helpers is an ``(N,)`` tensor here and every window an
-``(N, K)`` tensor. The arithmetic is the reference's, op for op, so the
-results are equal element for element: every sum the decisions read is
-a sum of integer-valued floats, exact in any order.
+``(N, K)`` tensor; the (trace × point) grid flattens to lane ``w·P + p``.
+The reference's two nested scans (over chunks, then over a chunk's
+substeps) become two Python loops that step every lane at once, with no
+host synchronisation inside them. The arithmetic is the reference's, op
+for op, so the decisions are equal element for element: every sum they
+read is a sum of integer-valued floats, exact in any order. Only the
+time integrals (turnaround, execution, node-seconds) sum in another
+order.
 
 Design notes of the encoding (status lanes, filtered-prefix first-fit,
-kills as a size threshold) are in the reference module's docstring.
+kills as a size threshold, substep discretization) are in the reference
+module's docstring.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.compat import resolve_pack_dtype
 from repro_torch.core.jobs import Job
+from repro_torch.core.profiles import sample_steps, step_points
 
-__all__ = ["FBGrid", "FLBGrid", "pack_job_table", "resolve_pack_dtype",
-           "fb_actions", "flb_actions", "stable_compact", "KILL_CLASSES"]
+__all__ = ["FBGrid", "FLBGrid", "PackedWorkloads", "ScanSpec",
+           "pack_workloads", "pack_job_table", "resolve_pack_dtype",
+           "scan_grids", "pick_dt", "fb_actions", "flb_actions",
+           "stable_compact", "compact_window", "KILL_CLASSES",
+           "DEFAULT_WINDOW", "DEFAULT_SUBSTEPS", "DEFAULT_FF_PASSES",
+           "FB_DT", "FLB_DT", "FLB_MIN_DT"]
 
+# The reference's settings (see ``repro.sim.scan`` for how each was chosen).
+DEFAULT_WINDOW = 192       # job-table lanes carried through the scan
+FB_WINDOW = 192            # FB's backlog is capacity-bound
+FLB_WINDOW = 128           # FLB-NUB leases elastically: a small backlog
+DEFAULT_SUBSTEPS = 12      # substeps per chunk (one window re-gather)
+DEFAULT_FF_PASSES = 2      # filtered-prefix first-fit passes per substep
+FB_DT = 900.0              # FB's substep: alloc ≈ C between WS moves
+FLB_DT = 300.0             # FLB-NUB's: the U/V/G feedback samples demand
+FLB_MIN_DT = 60.0          # floor of the WS-spacing cap in pick_dt
 KILL_CLASSES = 16          # power-of-two size classes for the FB kill order
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanSpec:
+    """Execution parameters of one policy's scan: the substep ``dt``, the
+    horizon in substeps, the job-window size, the substeps per chunk
+    (the window re-gather cadence) and the first-fit passes."""
+
+    n_steps: int
+    dt: float
+    window: int = DEFAULT_WINDOW
+    chunk_len: int = DEFAULT_SUBSTEPS
+    ff_passes: int = DEFAULT_FF_PASSES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +95,47 @@ class FLBGrid:
     lease: torch.Tensor       # (P,)
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedWorkloads:
+    """Fixed-size tensors for W workloads: arrival-sorted job tables
+    padded to a common length (padding rows have ``submit = +inf``, size
+    0) plus the per-substep WS demand profile and per-chunk submit
+    frontiers."""
+
+    submit: torch.Tensor      # (W, J + K) — padded past the table end too
+    size: torch.Tensor        # (W, J + K)
+    runtime: torch.Tensor     # (W, J + K)
+    ws: torch.Tensor          # (W, S) demand sampled at each substep END
+    ws0: torch.Tensor         # (W,) demand at t = 0 (startup allocation)
+    ws_changed: torch.Tensor  # (W, S) bool: demand differs from prev substep
+    hi_chunk: torch.Tensor    # (W, n_chunks) jobs submitted by chunk end
+    n_jobs: torch.Tensor      # (W,) real (unpadded) job counts
+
+    @property
+    def device(self) -> torch.device:
+        return self.submit.device
+
+
 def _prm_tree(policy: str, grid) -> Dict[str, torch.Tensor]:
     if policy == "fb":
         return {"capacity": grid.capacity, "lease": grid.lease}
     return {"B": grid.B, "lb_ws": grid.lb_ws, "U": grid.U, "V": grid.V,
             "G": grid.G, "lease": grid.lease}
+
+
+def _lane_prm_tree(policy: str, grid, n_workloads: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The grid's per-point scalars broadcast over the flattened
+    (trace × point) lanes, lane ``w·P + p``, with each lane's workload
+    row ``w_idx`` and point index ``p_idx``."""
+    P = int(grid.lease.shape[0])
+    dev = grid.lease.device
+    p_idx = torch.arange(P, device=dev).repeat(n_workloads)
+    w_idx = torch.arange(n_workloads, device=dev).repeat_interleave(P)
+    prm = {k: v[p_idx] for k, v in _prm_tree(policy, grid).items()}
+    prm["p_idx"] = p_idx
+    prm["w_idx"] = w_idx
+    return prm
 
 
 def pack_job_table(workloads: Sequence[Tuple[Sequence[Job],
@@ -86,6 +162,44 @@ def pack_job_table(workloads: Sequence[Tuple[Sequence[Job],
         size[w, :len(order)] = [j.size for j in order]
         runtime[w, :len(order)] = [j.runtime for j in order]
     return submit, size, runtime, n_jobs
+
+
+def pack_workloads(workloads: Sequence[Tuple[Sequence[Job],
+                                             Sequence[Tuple[float, int]]]],
+                   duration: float, dt: float,
+                   window: int = DEFAULT_WINDOW,
+                   chunk_len: int = DEFAULT_SUBSTEPS,
+                   dtype=None, device: compat.Device = None
+                   ) -> Tuple[PackedWorkloads, int]:
+    """Pack ``(jobs, ws_trace)`` workloads into stacked scan tensors on
+    ``device``. Returns ``(packed, n_steps)`` where ``n_steps =
+    ceil(duration / dt)`` (the scan runs ``n_chunks * chunk_len >=
+    n_steps`` substeps; the overhang is masked out). ``dtype`` defaults
+    to float32."""
+    dev = compat.resolve_device(device)
+    dtype = resolve_pack_dtype(dtype)
+    n_steps = int(np.ceil(duration / dt))
+    n_chunks = -(-n_steps // chunk_len)
+    s_pad = n_chunks * chunk_len
+    submit, size, runtime, n_jobs = pack_job_table(workloads, window, dtype)
+    ws = np.zeros((len(workloads), s_pad), dtype)
+    ws0 = np.zeros(len(workloads), dtype)
+    hi_chunk = np.zeros((len(workloads), n_chunks), np.int32)
+    for w, (jobs, ws_trace) in enumerate(workloads):
+        times, values = step_points(ws_trace, duration)
+        prof = sample_steps(times, values, np.arange(1, n_steps + 1) * dt)
+        ws[w, :n_steps] = prof.astype(dtype)
+        ws0[w] = values[0]
+        chunk_end_t = (np.arange(1, n_chunks + 1) * chunk_len) * dt
+        hi_chunk[w] = np.searchsorted(submit[w, :n_jobs[w]], chunk_end_t,
+                                      side="right")
+    ws_changed = np.zeros(ws.shape, bool)
+    ws_changed[:, 1:] = ws[:, 1:] != ws[:, :-1]
+    ws_changed[:, 0] = ws[:, 0] != ws0
+    arrays = dict(submit=submit, size=size, runtime=runtime, ws=ws, ws0=ws0,
+                  ws_changed=ws_changed, hi_chunk=hi_chunk, n_jobs=n_jobs)
+    return PackedWorkloads(**{k: torch.from_numpy(v).to(dev)
+                              for k, v in arrays.items()}), n_steps
 
 
 # ---------------------------------------------------------- scan primitives
@@ -245,3 +359,230 @@ def stable_compact(keep, arrays: List[torch.Tensor], fills):
     out = torch.where(valid[:, None, :], moved, fill_col)
     return [out[:, i].to(a.dtype) if a.dtype != torch.bool else out[:, i] != 0
             for i, a in enumerate(arrays)], n_keep
+
+
+def compact_window(keep, jidx, next_row, Jp: int, fields):
+    """Compact kept lanes to the window head (stable, so lane order
+    stays arrival order) and admit the next job-table rows into the
+    freed tail, for ``(N, K)`` windows. ``fields`` is a sequence of
+    ``(tensor, fill)`` pairs compacted alongside ``jidx`` (int32 rows);
+    admitted lanes read ``fill`` until their table row is gathered.
+    ``next_row`` is ``(N,)`` int32. Returns ``(jidx, next_row,
+    compacted)``."""
+    K = jidx.shape[-1]
+    lanes = torch.arange(K, dtype=torch.int32, device=jidx.device)
+    arrays, n_keep = stable_compact(
+        keep, [jidx] + [a for a, _ in fields],
+        [0] + [fill for _, fill in fields])
+    fresh = torch.clamp_max(next_row[:, None] + lanes[None, :]
+                            - n_keep[:, None], Jp - 1)
+    jidx = torch.where(lanes[None, :] >= n_keep[:, None], fresh, arrays[0])
+    next_row = torch.clamp_max(next_row + (K - n_keep), Jp - 1)
+    return jidx.to(torch.int32), next_row.to(torch.int32), arrays[1:]
+
+
+# ------------------------------------------------------------- the scan core
+
+_ACC_KEYS = ("completed", "turn_sum", "exec_sum", "kills", "node_seconds",
+             "peak", "pbj_adjusts", "adjusts", "window_overflow")
+
+
+def _lane_ctx(policy: str, prm: Dict, pk: PackedWorkloads) -> Dict:
+    """Each lane's workload tables (gathered by ``w_idx``) and policy
+    scalars, cast to the pack dtype."""
+    f = pk.submit.dtype
+    w = prm["w_idx"]
+    ctx = {"L": prm["lease"].to(f), "tr_submit": pk.submit[w],
+           "tr_size": pk.size[w], "tr_runtime": pk.runtime[w],
+           "tr_ws": pk.ws[w], "tr_ws0": pk.ws0[w],
+           "tr_ws_changed": pk.ws_changed[w], "tr_hi": pk.hi_chunk[w]}
+    keys = ("capacity",) if policy == "fb" else ("B", "lb_ws", "U", "V", "G")
+    for k in keys:
+        ctx[k] = prm[k].to(f)
+    return ctx
+
+
+def _startup(policy: str, ctx: Dict, spec: ScanSpec):
+    """The loop state at t = 0 for every lane: ``(jidx, next_row, owned,
+    pool_pbj, run, rem, start_t, acc)``."""
+    sub = ctx["tr_submit"]
+    N, K = sub.shape[0], spec.window
+    f, dev = sub.dtype, sub.device
+    ws0 = ctx["tr_ws0"]
+    if policy == "fb":
+        C = ctx["capacity"]
+        owned0 = C - torch.minimum(ws0, C)     # startup: all idle → PBJ
+        pool0 = torch.zeros(N, dtype=f, device=dev)
+    else:
+        owned0 = torch.clamp_min(ctx["B"] - ctx["lb_ws"], 1.0)   # §5.2
+        pool0 = owned0
+    acc = {k: torch.zeros(N, dtype=f, device=dev) for k in _ACC_KEYS}
+    acc["adjusts"] = (ws0 > 0).to(f)       # startup WS allocation event
+    jidx = torch.arange(K, dtype=torch.int32, device=dev).expand(N, K)
+    return (jidx.contiguous(), torch.full((N,), K, dtype=torch.int32,
+                                          device=dev),
+            owned0, pool0, torch.zeros(N, K, dtype=torch.bool, device=dev),
+            torch.zeros(N, K, dtype=f, device=dev),
+            torch.zeros(N, K, dtype=f, device=dev), acc)
+
+
+def _substep(policy: str, ctx: Dict, spec: ScanSpec, window, state, s_idx,
+             wsv, ws_chg):
+    """One substep of every lane: advance → complete → the policy's
+    actions → the lazy runtime read on start → accounting, the
+    reference's order. ``window`` is the chunk's ``(w_sub, w_sz, w_rt,
+    cls, class_masks)``; ``state`` is ``(owned, pool_pbj, run, done,
+    rem, start_t, acc)``; ``s_idx`` a 0-dim tensor of the pack dtype,
+    ``wsv`` / ``ws_chg`` the lanes' (N,) demand and change flag."""
+    w_sub, w_sz, w_rt, w_cls, w_masks = window
+    owned, pool_pbj, run, done, rem, start_t, acc = state
+    acc = dict(acc)
+    dt, f = spec.dt, w_sz.dtype
+    zero = torch.zeros_like(w_sz)
+    L = ctx["L"]
+    t = (s_idx + 1.0) * dt
+    active = s_idx < spec.n_steps
+    is_tick = active & (torch.floor(t / L) > torch.floor(s_idx * dt / L))
+
+    # 1. Advance running jobs one substep; fold completions into the
+    # accumulators the moment they happen.
+    rem = torch.where(run & active, rem - dt, rem)
+    completing = run & (rem <= 0.5 * dt) & active
+    run = run & ~completing
+    done = done | completing
+    acc["completed"] = acc["completed"] + completing.to(f).sum(dim=-1)
+    acc["turn_sum"] = acc["turn_sum"] + torch.where(
+        completing, t - w_sub, zero).sum(dim=-1)
+    acc["exec_sum"] = acc["exec_sum"] + torch.where(
+        completing, t - start_t, zero).sum(dim=-1)
+
+    queued = active & (w_sub <= t) & ~run & ~done
+    used = torch.where(run, w_sz, zero).sum(dim=-1)
+
+    if policy == "fb":
+        # 2-4. §5.1 WS reclaim (kills) → tick grant → first-fit.
+        owned, run, starts, killed, alloc, pbj_ev = fb_actions(
+            ctx["capacity"], owned, run, used, queued, wsv, w_sz, w_cls,
+            w_masks, is_tick, spec.ff_passes)
+        acc["kills"] = acc["kills"] + killed.to(f).sum(dim=-1)
+    else:
+        # 2-4. §5.2 pool grant → first-fit → U/V/G on post-start state
+        # → first-fit.
+        owned, pool_pbj, run, starts, alloc, pbj_ev = flb_actions(
+            ctx["B"], ctx["lb_ws"], ctx["U"], ctx["V"], ctx["G"], owned,
+            pool_pbj, run, used, queued, wsv, w_sz, is_tick, spec.ff_passes)
+    rem = torch.where(starts, w_rt, rem)       # runtime read on start —
+    start_t = torch.where(starts, t, start_t)  # kills reset lazily
+
+    # 5. Accounting (§6.1 metrics).
+    zs = torch.zeros_like(alloc)
+    alloc = torch.where(active, alloc, zs)
+    acc["node_seconds"] = acc["node_seconds"] + alloc * dt
+    acc["peak"] = torch.maximum(acc["peak"], alloc)
+    acc["pbj_adjusts"] = acc["pbj_adjusts"] + torch.where(active, pbj_ev, zs)
+    acc["adjusts"] = acc["adjusts"] + torch.where(
+        active, pbj_ev + ws_chg.to(f), zs)
+    return owned, pool_pbj, run, done, rem, start_t, acc
+
+
+def _gather_window(ctx: Dict, jidx):
+    """The window's job rows ``tr[jidx]`` per lane (``jidx`` clamped to
+    the table, as a JAX gather clamps) and their kill size classes."""
+    Jp = ctx["tr_submit"].shape[1]
+    rows = torch.clamp(jidx.long(), 0, Jp - 1)
+    w_sz = ctx["tr_size"].gather(1, rows)
+    return (ctx["tr_submit"].gather(1, rows), w_sz,
+            ctx["tr_runtime"].gather(1, rows), *_size_classes(w_sz))
+
+
+def _simulate(policy: str, prm: Dict, pk: PackedWorkloads,
+              spec: ScanSpec) -> Dict[str, torch.Tensor]:
+    """Every (point, workload) lane of ``prm`` at once (``prm`` holds one
+    entry per lane: the policy scalars, ``w_idx`` and ``p_idx``). The
+    reference's scan over chunks and its inner scan over a chunk's
+    substeps are two Python loops; each substep steps every lane."""
+    ctx = _lane_ctx(policy, prm, pk)
+    chunk_len = spec.chunk_len
+    n_chunks = ctx["tr_ws"].shape[1] // chunk_len
+    Jp = ctx["tr_submit"].shape[1]   # includes >= K pad rows (submit = +inf)
+    f, dev = pk.submit.dtype, pk.device
+    (jidx, next_row, owned, pool_pbj, run, rem, start_t,
+     acc) = _startup(policy, ctx, spec)
+    # Every substep index as a device scalar of the pack dtype (indexing
+    # this tensor needs no host-to-device copy inside the loop).
+    s_all = torch.arange(n_chunks * chunk_len, device=dev).to(f)
+    tr_ws, tr_chg = ctx["tr_ws"], ctx["tr_ws_changed"]
+    for c in range(n_chunks):
+        window = _gather_window(ctx, jidx)
+        done = torch.zeros_like(run)
+        state = (owned, pool_pbj, run, done, rem, start_t, acc)
+        for s in range(c * chunk_len, (c + 1) * chunk_len):
+            state = _substep(policy, ctx, spec, window, state, s_all[s],
+                             tr_ws[:, s], tr_chg[:, s])
+        owned, pool_pbj, run, done, rem, start_t, acc = state
+        # Compact finished lanes out of the window and admit the next
+        # job-table rows into the freed tail (ahead of their submit
+        # time, so mid-chunk arrivals are already on a lane).
+        jidx, next_row, (run, rem, start_t) = compact_window(
+            ~done, jidx, next_row, Jp,
+            ((run, False), (rem, 0.0), (start_t, 0.0)))
+        acc = dict(acc, window_overflow=acc["window_overflow"]
+                   + (ctx["tr_hi"][:, c] > next_row).to(f))
+    n_done = torch.clamp_min(acc["completed"], 1.0)
+    return {
+        "completed_jobs": acc["completed"],
+        "avg_turnaround": acc["turn_sum"] / n_done,
+        "avg_execution": acc["exec_sum"] / n_done,
+        "node_hours": acc["node_seconds"] / 3600.0,
+        "peak_nodes": acc["peak"],
+        "adjust_events": acc["adjusts"],
+        "pbj_adjust_events": acc["pbj_adjusts"],
+        "kills": acc["kills"],
+        "window_overflow": acc["window_overflow"],
+    }
+
+
+def scan_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
+               fb_packed: Optional[PackedWorkloads],
+               flb_packed: Optional[PackedWorkloads], *,
+               fb_spec: Optional[ScanSpec] = None,
+               flb_spec: Optional[ScanSpec] = None,
+               devices=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Evaluate FB and FLB-NUB sweep grids over all packed workloads on
+    the device the packs live on. Returns ``{"fb": metrics, "flb_nub":
+    metrics}`` where each metric tensor has shape ``(W, P_policy)``; a
+    policy is skipped when its spec is ``None``. Each policy runs at its
+    own :class:`ScanSpec`. ``devices`` other than ``None`` / 1 raises:
+    the lane splitter over several GPUs is not ported yet."""
+    compat.check_devices(devices)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for policy, grid, packed, spec in (("fb", fb, fb_packed, fb_spec),
+                                       ("flb_nub", flb, flb_packed,
+                                        flb_spec)):
+        if spec is None:
+            continue
+        W = int(packed.submit.shape[0])
+        P = int(grid.lease.shape[0])
+        m = _simulate(policy, _lane_prm_tree(policy, grid, W), packed, spec)
+        out[policy] = {k: v.reshape(W, P) for k, v in m.items()}
+    return out
+
+
+def pick_dt(policy: str, leases: Sequence[float],
+            ws_traces: Optional[Sequence[Sequence[Tuple[float, int]]]] = None,
+            duration: Optional[float] = None) -> float:
+    """Default substep for a policy's grid: the validated granularity
+    (``FB_DT`` / ``FLB_DT``), never coarser than the shortest lease in
+    the grid. For FLB-NUB the substep is also capped by the shortest WS
+    change-point spacing across ``ws_traces`` before ``duration``
+    (floored at ``FLB_MIN_DT``), so the sampled demand does not alias
+    the U/V/G feedback."""
+    base = FB_DT if policy == "fb" else FLB_DT
+    dt = min(base, min(leases))
+    if policy == "flb_nub" and ws_traces:
+        horizon = duration if duration is not None else np.inf
+        spacing = min((b - a for trace in ws_traces
+                       for (a, _), (b, _) in zip(trace, trace[1:])
+                       if b > a and a < horizon), default=dt)
+        dt = min(dt, max(spacing, FLB_MIN_DT))
+    return dt

@@ -19,12 +19,19 @@ Execution paths, selected by ``mode``:
     round-step kernel on a CUDA device. ``"auto"`` sends FB points with
     ``checkpoint_preempt`` to the event engine; ``"rounds"`` refuses
     them.
+  * **Fixed-dt scan** FB and FLB-NUB (mode ``"scan"``):
+    ``repro_torch.sim.scan`` advances every (trace × point) lane on a
+    fixed substep on the device, a host loop of small tensor ops.
+    Approximate by discretization (``CONTRACTS["scan"]``); kept as the
+    cross-check of the rounds engine.
   * **Event engine** (mode ``"event"``, and the fallback above): one
     ``run_sim`` per point on its own clone of the trace — the reference
     every fast path is validated against.
 
-Mode ``"scan"`` (the fixed-``dt`` engine) and generated scenario
-batches are not ported yet and raise.
+``workloads`` may also be a generated scenario batch
+(:class:`repro_torch.sim.scenarios.ScenarioGrid`): its lanes are
+synthesized on the device, packed as one batch and run through the
+rounds engine as one (W × P) program per policy.
 
 The vectorized path replicates the event engine's tie order: at a
 shared timestamp WS demand changes apply before lease-tick releases,
@@ -47,6 +54,7 @@ from repro_torch.core.pbj_manager import PBJPolicyParams
 from repro_torch.core.profiles import step_integral, step_points
 from repro_torch.sim import rounds as roundslib
 from repro_torch.sim import scan as scanlib
+from repro_torch.sim import scenarios as scenarioslib
 from repro_torch.sim.engine import (_SUBMIT, _TICK, _WS, SYSTEMS, build_dcs,
                                     build_ec2_rightscale, build_fb,
                                     build_flb_nub, clone_jobs,
@@ -61,10 +69,6 @@ MODES = ("auto", "event", "scan", "rounds")
 # coordinated policies that take the batched rounds path.
 _VECTORIZED = ("dcs", "ec2")
 _SCANNABLE = ("fb", "flb_nub")
-
-_SCAN_LATER = ("mode=\"scan\" (the fixed-dt engine) is not ported yet "
-               "(ROADMAP: mode=\"scan\"); use mode=\"rounds\" or \"auto\"")
-
 
 @dataclasses.dataclass(frozen=True)
 class SweepPoint:
@@ -108,23 +112,50 @@ class SweepPoint:
 
 @dataclasses.dataclass(frozen=True)
 class ScanOptions:
-    """Knobs of the batched rounds path (``repro_torch.sim.rounds``).
-    The defaults are the settings the fidelity contracts are validated
-    at: the policy's window (``window=None``), 2 first-fit passes
-    (``ff_passes=None``) and no coalescing (``coalesce=None``;
-    ``rounds.COALESCE_BATCH`` = 8 is the recommended opt-in). ``dtype``
-    is the pack dtype (float32 by default, float64 on request).
-    ``kernel`` selects the round-step backend: ``None`` picks the CUDA
-    kernel on a CUDA device and the plain version on the CPU; ``"cuda"``
-    and ``"torch"`` choose. ``devices`` other than ``None`` / 1 raises:
-    the multi-GPU lane splitter is not ported yet."""
+    """Knobs of the batched paths (``mode="scan"``:
+    ``repro_torch.sim.scan``; ``mode="rounds"``:
+    ``repro_torch.sim.rounds``). The defaults are the settings the
+    fidelity contracts are validated at: the policy's window
+    (``window=None``), 2 first-fit passes (``ff_passes=None``) and no
+    coalescing (``coalesce=None``; ``rounds.COALESCE_BATCH`` = 8 is the
+    recommended opt-in). ``dt=None`` picks each policy's validated
+    substep (``scan.pick_dt``) and ``chunk_len=None`` re-gathers the job
+    window every hour (FB) or half hour (FLB-NUB); both only affect
+    ``mode="scan"``, and ``coalesce`` / ``kernel`` only the rounds
+    engine. ``dtype`` is the pack dtype (float32 by default, float64 on
+    request). ``kernel`` selects the round-step backend: ``None`` picks
+    the CUDA kernel on a CUDA device and the plain version on the CPU;
+    ``"cuda"`` and ``"torch"`` choose. ``devices`` other than ``None`` /
+    1 raises: the multi-GPU lane splitter is not ported yet."""
 
+    dt: Optional[float] = None
     window: Optional[int] = None
+    chunk_len: Optional[int] = None
     ff_passes: Optional[int] = None
     coalesce: Optional[int] = None
     dtype: Optional[np.dtype] = None
     devices: Optional[int] = None
     kernel: Optional[str] = None
+
+    def resolve(self, policy: str, leases: Sequence[float],
+                duration: float,
+                ws_traces: Optional[Sequence[Sequence[Tuple[float, int]]]]
+                = None) -> scanlib.ScanSpec:
+        dt = self.dt if self.dt is not None else scanlib.pick_dt(
+            policy, leases, ws_traces, duration)
+        window = (self.window if self.window is not None else
+                  (scanlib.FB_WINDOW if policy == "fb"
+                   else scanlib.FLB_WINDOW))
+        # Re-gather cadence: FB's window turns over slowly (its backlog
+        # is bounded by C), FLB-NUB's buffers arrival bursts.
+        chunk_seconds = 3600.0 if policy == "fb" else 1800.0
+        chunk = (self.chunk_len if self.chunk_len is not None
+                 else max(2, int(round(chunk_seconds / dt))))
+        ff = (self.ff_passes if self.ff_passes is not None
+              else scanlib.DEFAULT_FF_PASSES)
+        return scanlib.ScanSpec(
+            n_steps=int(np.ceil(duration / dt)), dt=dt, window=window,
+            chunk_len=chunk, ff_passes=ff)
 
     def resolve_rounds(self, policy: str, leases: Sequence[float],
                        duration: float, max_jobs: int,
@@ -265,7 +296,7 @@ def _sweep_ec2(points: List[SweepPoint], jobs: Sequence[Job],
     return rows
 
 
-# ------------------------------------------------------- batched rounds path
+# ------------------------------------------------ batched scan/rounds paths
 
 def _reject_preempt(points: List[SweepPoint], mode: str) -> None:
     for p in points:
@@ -367,6 +398,65 @@ def _warn_diagnostics(per_workload: List[List[Dict]], engine: str,
             stacklevel=stacklevel)
 
 
+def _pack_scan(points: List[SweepPoint],
+               workloads: Sequence[Tuple[Sequence[Job],
+                                         Sequence[Tuple[float, int]]]],
+               duration: float, options: ScanOptions,
+               device: torch.device):
+    """Host-side setup stage of the scan path: trace packing (to
+    ``device``) + grid construction."""
+    fb_idx = [i for i, p in enumerate(points) if p.system == "fb"]
+    flb_idx = [i for i, p in enumerate(points) if p.system == "flb_nub"]
+    ws_traces = [ws for _, ws in workloads]
+
+    fb = flb = fb_packed = flb_packed = fb_spec = flb_spec = None
+    if fb_idx:
+        fb_spec = options.resolve(
+            "fb", [points[i].lease_seconds for i in fb_idx], duration)
+        fb_packed, _ = scanlib.pack_workloads(
+            workloads, duration, fb_spec.dt, window=fb_spec.window,
+            chunk_len=fb_spec.chunk_len, dtype=options.dtype, device=device)
+        fb = _fb_grid(points, fb_idx, fb_packed.ws.dtype, device)
+    if flb_idx:
+        flb_spec = options.resolve(
+            "flb_nub", [points[i].lease_seconds for i in flb_idx], duration,
+            ws_traces=ws_traces)
+        flb_packed, _ = scanlib.pack_workloads(
+            workloads, duration, flb_spec.dt, window=flb_spec.window,
+            chunk_len=flb_spec.chunk_len, dtype=options.dtype, device=device)
+        flb = _flb_grid(points, flb_idx, flb_packed.ws.dtype, device)
+    return fb_idx, flb_idx, fb, flb, fb_packed, flb_packed, fb_spec, flb_spec
+
+
+def _to_numpy(out: Dict[str, Dict[str, torch.Tensor]]) -> Dict:
+    return {kind: {k: v.cpu().numpy() for k, v in m.items()}
+            for kind, m in out.items()}
+
+
+def _sweep_scan(points: List[SweepPoint],
+                workloads: Sequence[Tuple[Sequence[Job],
+                                          Sequence[Tuple[float, int]]]],
+                duration: float, options: ScanOptions,
+                device: torch.device,
+                warn_stacklevel: int = 3) -> List[List[Dict]]:
+    """FB and FLB-NUB points through the fixed-dt scan engine. Returns
+    one row list per workload, each aligned with ``points`` (which must
+    all be scan-eligible systems); the whole (policy, point, workload)
+    grid runs as one lane batch per policy."""
+    assert all(p.system in _SCANNABLE for p in points)
+    _reject_preempt(points, "scan")
+    (fb_idx, flb_idx, fb, flb, fb_packed, flb_packed,
+     fb_spec, flb_spec) = _pack_scan(points, workloads, duration, options,
+                                     device)
+    out = scanlib.scan_grids(fb, flb, fb_packed, flb_packed,
+                             fb_spec=fb_spec, flb_spec=flb_spec,
+                             devices=options.devices)
+    rows = _assemble_rows(points, fb_idx, flb_idx, _to_numpy(out),
+                          len(workloads), "scan")
+    _warn_diagnostics(rows, "scan", stacklevel=warn_stacklevel)
+    return rows
+
+
 def _pack_rounds(points: List[SweepPoint],
                  workloads: Sequence[Tuple[Sequence[Job],
                                            Sequence[Tuple[float, int]]]],
@@ -431,6 +521,69 @@ def _sweep_rounds(points: List[SweepPoint],
     return rows
 
 
+def _pack_scenarios_grids(points: List[SweepPoint], grid, synth,
+                          options: ScanOptions, device: torch.device):
+    """Setup stage of the generated-scenario path: one
+    :func:`repro_torch.sim.scenarios.pack_scenarios` per policy (job
+    tables, rise compression and the batched (W, P) fold tables are all
+    array ops — no per-lane host loop)."""
+    fb_idx = [i for i, p in enumerate(points) if p.system == "fb"]
+    flb_idx = [i for i, p in enumerate(points) if p.system == "flb_nub"]
+    duration = float(grid.duration)
+    changes = synth.ws_values[:, 1:] != synth.ws_values[:, :-1]
+    n_ws = int(changes.sum(axis=1).max()) + 1
+
+    fb = flb = fb_packed = flb_packed = fb_spec = flb_spec = None
+    if fb_idx:
+        leases = [points[i].lease_seconds for i in fb_idx]
+        fb_spec = options.resolve_rounds("fb", leases, duration,
+                                         grid.max_jobs, n_ws)
+        fb_packed = scenarioslib.pack_scenarios(
+            synth, fb_spec.window, "fb", leases,
+            [float(points[i].capacity) for i in fb_idx],
+            dtype=options.dtype, device=device)
+        fb = _fb_grid(points, fb_idx, fb_packed.submit.dtype, device)
+    if flb_idx:
+        leases = [points[i].lease_seconds for i in flb_idx]
+        flb_spec = options.resolve_rounds("flb_nub", leases, duration,
+                                          grid.max_jobs, n_ws)
+        flb_packed = scenarioslib.pack_scenarios(
+            synth, flb_spec.window, "flb_nub", leases,
+            [float(points[i].lb_ws) for i in flb_idx],
+            dtype=options.dtype, device=device)
+        flb = _flb_grid(points, flb_idx, flb_packed.submit.dtype, device)
+    return (fb_idx, flb_idx, fb, flb, fb_packed, flb_packed, fb_spec,
+            flb_spec)
+
+
+def _sweep_rounds_generated(points: List[SweepPoint], grid,
+                            options: ScanOptions, synth=None,
+                            warn_stacklevel: int = 3,
+                            device: compat.Device = None
+                            ) -> List[List[Dict]]:
+    """FB / FLB-NUB points over a generated scenario batch
+    (:class:`repro_torch.sim.scenarios.ScenarioGrid`) through the
+    event-round engine. Generated lanes share one dense WS grid and one
+    job-table height, so the whole (W × P) batch of each policy runs as
+    ONE ``rounds_grids`` call — one round-step launch per policy on a
+    CUDA device. ``synth`` (a synthesized batch of ``grid``) skips the
+    synthesis."""
+    dev = compat.resolve_device(device)
+    assert all(p.system in _SCANNABLE for p in points)
+    _reject_preempt(points, "rounds")
+    if synth is None:
+        synth = scenarioslib.synthesize(grid, device=dev)
+    (fb_idx, flb_idx, fb, flb, fb_packed, flb_packed, fb_spec,
+     flb_spec) = _pack_scenarios_grids(points, grid, synth, options, dev)
+    out = roundslib.rounds_grids(fb, flb, fb_packed, flb_packed,
+                                 fb_spec=fb_spec, flb_spec=flb_spec,
+                                 devices=options.devices)
+    rows = _assemble_rows(points, fb_idx, flb_idx, _to_numpy(out),
+                          grid.n_lanes, "rounds")
+    _warn_diagnostics(rows, "rounds", stacklevel=warn_stacklevel)
+    return rows
+
+
 # --------------------------------------------------------------- the sweep
 
 def _resolve_mode(mode: Optional[str], vectorize: bool) -> str:
@@ -438,8 +591,6 @@ def _resolve_mode(mode: Optional[str], vectorize: bool) -> str:
         return "auto" if vectorize else "event"
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if mode == "scan":
-        raise ValueError(_SCAN_LATER)
     return mode
 
 
@@ -453,7 +604,8 @@ def run_sweep(points: Sequence[SweepPoint], jobs: Sequence[Job],
     """Evaluate every sweep point on the same (jobs, ws_trace) workload.
 
     Returns one row dict per point, in input order, each tagged with
-    ``engine`` = ``"vectorized"``, ``"rounds"`` or ``"event"``. ``mode``
+    ``engine`` = ``"vectorized"``, ``"rounds"``, ``"scan"`` (mode
+    ``"scan"`` only) or ``"event"``. ``mode``
     selects the paths (see the module docstring); the legacy
     ``vectorize=False`` flag equals ``mode="event"``. ``device`` is
     where the batched paths run: CUDA by default, the CPU only when
@@ -482,24 +634,55 @@ def run_sweep_workloads(points: Sequence[SweepPoint],
     ``duration`` (§6.1) — the default is the latest horizon any
     workload implies. ``devices`` overrides ``scan_options.devices``.
 
+    ``workloads`` may instead be a
+    :class:`repro_torch.sim.scenarios.ScenarioGrid` — a generated
+    scenario batch (per-lane seeds + parameter grids). The lanes then
+    synthesize on the device, pack as ONE batch and run the event-round
+    engine as one (W × P) program per policy; only FB / FLB-NUB points
+    are supported, in mode ``"auto"`` or ``"rounds"``, and the grid
+    fixes the horizon (``duration`` must be ``None`` or the grid's).
+
     ``_stack_offset`` (private) is the number of wrapper frames between
     the user's call site and this function, so diagnostic
     ``RuntimeWarning``\\ s name the caller's file.
     """
     dev = compat.resolve_device(device)
     mode = _resolve_mode(mode, vectorize)
-    if not isinstance(workloads, (list, tuple)):
-        raise ValueError(
-            "generated scenario batches (ScenarioGrid) are not ported yet "
-            "(ROADMAP: scenarios.py); pass a list of (jobs, ws_trace) "
-            "pairs")
     # warnings.warn stack depth from inside _warn_diagnostics:
-    # 1 = _warn_diagnostics, 2 = _sweep_rounds, 3 = this function,
+    # 1 = _warn_diagnostics, 2 = _sweep_*, 3 = this function,
     # 4 = our caller — plus any wrapper frames above us.
     warn_stacklevel = 4 + _stack_offset
     if devices is not None:
         scan_options = dataclasses.replace(scan_options, devices=devices)
     compat.check_devices(scan_options.devices)
+    if isinstance(workloads, scenarioslib.ScenarioGrid):
+        # Generated scenario batches (seeds + param grids, not
+        # List[Job]) flow the event-round engine only: the lanes share
+        # one dense WS grid and job-table height, so the whole (W × P)
+        # batch is one program. The grid carries its own horizon.
+        if mode not in ("auto", "rounds"):
+            raise ValueError(
+                f"generated scenario batches run the rounds engine only "
+                f"(mode 'auto'/'rounds', got {mode!r})")
+        if duration is not None and duration != workloads.duration:
+            raise ValueError(
+                "duration is fixed by ScenarioGrid.duration — pass None")
+        bad = sorted({p.system for p in points
+                      if p.system not in _SCANNABLE})
+        if bad:
+            raise ValueError(
+                f"generated scenario batches support FB / FLB-NUB points "
+                f"only, got {bad}; evaluate DCS/EC2 baselines on "
+                f"sampled lanes (repro_torch.sim.scenarios."
+                f"sample_workloads)")
+        return _sweep_rounds_generated(list(points), workloads,
+                                       scan_options,
+                                       warn_stacklevel=warn_stacklevel,
+                                       device=dev)
+    if not isinstance(workloads, (list, tuple)):
+        raise ValueError(
+            "workloads must be a list of (jobs, ws_trace) pairs or a "
+            "ScenarioGrid")
     if duration is None:
         duration = max(default_duration(jobs, ws) for jobs, ws in workloads)
     rows: List[List[Optional[Dict]]] = [
@@ -521,7 +704,7 @@ def run_sweep_workloads(points: Sequence[SweepPoint],
                                              dev)):
                     rows[w][i] = row
 
-    if mode in ("auto", "rounds"):
+    if mode in ("auto", "scan", "rounds"):
         batch_idx = [i for i, p in enumerate(points)
                      if p.system in _SCANNABLE]
         if mode == "auto":
@@ -530,10 +713,11 @@ def run_sweep_workloads(points: Sequence[SweepPoint],
             batch_idx = [i for i in batch_idx
                          if not (points[i].system == "fb"
                                  and points[i].params.checkpoint_preempt)]
+        fast = _sweep_scan if mode == "scan" else _sweep_rounds
         if batch_idx:
-            fast_rows = _sweep_rounds([points[i] for i in batch_idx],
-                                      workloads, duration, scan_options,
-                                      dev, warn_stacklevel=warn_stacklevel)
+            fast_rows = fast([points[i] for i in batch_idx], workloads,
+                             duration, scan_options, dev,
+                             warn_stacklevel=warn_stacklevel)
             for w in range(len(workloads)):
                 for j, i in enumerate(batch_idx):
                     rows[w][i] = fast_rows[w][j]

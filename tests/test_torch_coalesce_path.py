@@ -34,7 +34,7 @@ from repro_torch.core.jobs import Job
 from repro_torch.kernels import round_step as rsk
 from repro_torch.sim import rounds
 from repro_torch.sim.capacity import headline_queries
-from repro_torch.sim.scan import FBGrid
+from repro_torch.sim.scan import FBGrid, _lane_prm_tree
 from repro_torch.sim.sweep import ScanOptions, SweepPoint, run_sweep
 
 RESULTS = Path(__file__).resolve().parents[1] / "results"
@@ -128,7 +128,7 @@ def test_coalesced_kernel_has_no_cpu_fallback():
                                      [3600.0], [4.0], device="cpu")
     grid = FBGrid(capacity=torch.tensor([4.0]),
                   lease=torch.tensor([3600.0]))
-    prm = rounds._rounds_prm_tree("fb", grid, 1)
+    prm = _lane_prm_tree("fb", grid, 1)
     ctx = rounds._lane_ctx("fb", prm, pk)
     sc, win = rounds._startup("fb", ctx, spec, pk.ws0[prm["w_idx"]])
     before = rsk.chunk_step.launches

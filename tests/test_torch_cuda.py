@@ -8,7 +8,11 @@ three time integrals (rtol 1e-5 float32, 1e-6 float64), with the
 contended-stretch coalescer off and on (batch 1 and 8), and the
 one-launch loop (``run_rounds``) must equal the per-chunk kernel path
 bit for bit; a pack with fault schedules runs the plain step on the card
-(no launch) with the CPU's rows, and the kernel refuses it; the flash
+(no launch) with the CPU's rows, and the kernel refuses it; the scan
+engine (plain tensor code) gives the CPU's rows, a generated scenario
+batch runs one kernel launch per policy with the plain step's rows, and
+scenario synthesis is deterministic per seed on the card and equals the
+CPU's up to the transforms' rounding; the flash
 attention and flash decode kernels must match ``kernels.ref`` (see the
 tolerances below), and a reduced model's kernel path its plain path.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
@@ -24,7 +28,7 @@ from repro_torch.core.jobs import Job
 from repro_torch.kernels import round_step as rsk
 from repro_torch.kernels.cudalib import stream_zeroed_ints
 from repro_torch.sim import rounds, traces
-from repro_torch.sim.scan import FBGrid
+from repro_torch.sim.scan import FBGrid, _lane_prm_tree
 from repro_torch.sim.sweep import ScanOptions, _pack_rounds, paper_grid
 
 DAY = 24 * 3600.0
@@ -39,7 +43,7 @@ def _step_against_plain(policy, grid, pk, spec, horizon):
     state and must agree (exact except the three integrals); the plain
     result carries on for the live lanes. Returns the per-chunk states
     before and after."""
-    prm = rounds._rounds_prm_tree(policy, grid, 1)
+    prm = _lane_prm_tree(policy, grid, 1)
     ctx = rounds._lane_ctx(policy, prm, pk)
     sc, win = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
     inputs = rsk.lane_inputs(policy, ctx)
@@ -141,7 +145,7 @@ def _run_against_chunks(policy, grid, pk, spec, outer_max):
     path steps every lane with ``chunk_step`` and freezes a lane once
     ``(i < outer_max) & (t < duration)`` fails. Returns both final
     states and step counts."""
-    prm = rounds._rounds_prm_tree(policy, grid, 1)
+    prm = _lane_prm_tree(policy, grid, 1)
     ctx = rounds._lane_ctx(policy, prm, pk)
     sc0, win0 = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
     inputs = rsk.lane_inputs(policy, ctx)
@@ -297,7 +301,7 @@ def test_kernel_refuses_a_fault_table_on_the_card():
     cuda_spec = dataclasses.replace(spec, kernel="cuda")
     with pytest.raises(NotImplementedError, match="fault injection"):
         rounds.rounds_grids(grid, None, pk, None, fb_spec=cuda_spec)
-    prm = rounds._rounds_prm_tree("fb", grid, int(pk.submit.shape[0]))
+    prm = _lane_prm_tree("fb", grid, int(pk.submit.shape[0]))
     ctx = rounds._lane_ctx("fb", prm, pk)
     ftab = rsk.fault_table(ctx)
     inputs = rsk.lane_inputs("fb", ctx, ftab)
@@ -316,6 +320,145 @@ def test_kernel_refuses_a_fault_table_on_the_card():
     torch.cuda.synchronize()
     assert rsk.run_rounds.launches == launches[1] + 1
     assert float(out["completed_jobs"].min()) > 0
+
+
+# ------------------------- the scan engine and generated scenarios on the card
+
+def _rows_equal(got, want):
+    """Sweep rows: exact except the three integrals (rtol 1e-5)."""
+    for rg, rw in zip(got, want):
+        for a, b in zip(rg, rw):
+            for k in a:
+                if k in ("avg_turnaround", "avg_execution", "node_hours"):
+                    assert a[k] == pytest.approx(b[k], rel=1e-5), k
+                else:
+                    assert a[k] == b[k], k
+
+
+def test_scan_rows_on_the_card_equal_the_cpu_rows():
+    """mode="scan" (plain tensor code, no kernel) gives the CPU's rows on
+    cuda for both policies and two traces, and launches nothing."""
+    from repro_torch.sim.sweep import run_sweep_workloads
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    horizon = 2 * DAY
+    wls = [([j for j in tr(seed=0) if j.submit < horizon],
+            [(t, d) for t, d in traces.worldcup98(seed=s, peak_vms=128)
+             if t < horizon])
+           for s, tr in enumerate((traces.nasa_ipsc, traces.sdsc_blue))]
+    points = [p for p in paper_grid(128) if p.system in ("fb", "flb_nub")]
+    launches = (rsk.chunk_step.launches, rsk.run_rounds.launches)
+    rows = [run_sweep_workloads(points, wls, horizon, mode="scan",
+                                device=d) for d in ("cuda", "cpu")]
+    assert (rsk.chunk_step.launches, rsk.run_rounds.launches) == launches
+    assert all(r["engine"] == "scan" for rs in rows[0] for r in rs)
+    _rows_equal(*rows)
+
+
+def _scenario_grid(W, duration, max_jobs):
+    from repro_torch.sim import scenarios as sc
+    return sc.ScenarioGrid(
+        seeds=tuple(range(W)),
+        pbj=sc.PBJParams(nodes=128.0,
+                         utilization=np.linspace(0.35, 0.8, W),
+                         n_jobs=np.round(np.linspace(0.6, 0.95, W)
+                                         * max_jobs),
+                         alpha=np.linspace(0.15, 0.7, W)),
+        ws=sc.WSParams(peak=np.round(np.linspace(32.0, 128.0, W))),
+        duration=duration, max_jobs=max_jobs)
+
+
+SCENARIO_POINTS = (("fb", 96), ("fb", 128), ("fb", 160),
+                   ("flb_nub", 3600.0), ("flb_nub", 1800.0))
+
+
+def test_generated_scenarios_kernel_rows_equal_plain_at_width_45():
+    """A 9-seed ScenarioGrid over five points (45 lanes) through the
+    round-step kernel: one launch per policy, rows equal the plain
+    step's on the card."""
+    from repro_torch.sim.sweep import SweepPoint, run_sweep_workloads
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    grid = _scenario_grid(9, 2 * DAY, 400)
+    points = [SweepPoint("fb", capacity=v) if s == "fb" else
+              SweepPoint("flb_nub", lb_pbj=13, lb_ws=12, lease_seconds=v)
+              for s, v in SCENARIO_POINTS]
+    runs = rsk.run_rounds.launches
+    kernel = run_sweep_workloads(points, grid, mode="rounds")
+    assert rsk.run_rounds.launches - runs == 2
+    plain = run_sweep_workloads(points, grid, mode="rounds",
+                                scan_options=ScanOptions(kernel="torch"))
+    assert rsk.run_rounds.launches - runs == 2
+    assert len(kernel) == 9 and all(len(r) == 5 for r in kernel)
+    assert all(r["truncated"] == 0 for rs in kernel for r in rs)
+    _rows_equal(kernel, plain)
+
+
+def test_synthesize_on_the_card_is_deterministic_per_seed():
+    """Two syntheses on cuda are equal; lane w equals a one-lane grid of
+    its seed; the moments hold (count, sorted arrivals, sizes, peak)."""
+    import dataclasses as dc
+    from repro_torch.sim import scenarios as sc
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    grid = _scenario_grid(4, 2 * DAY, 400)
+    a, b = sc.synthesize(grid), sc.synthesize(grid)
+    for f in ("submit", "size", "runtime", "n_jobs", "ws_values"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    one = sc.synthesize(dc.replace(
+        grid, seeds=(3,), pbj=sc.PBJParams(
+            nodes=128.0, utilization=0.8, n_jobs=float(a.n_jobs[3]),
+            alpha=0.7), ws=sc.WSParams(peak=128.0)))
+    for f in ("submit", "size", "runtime", "ws_values"):
+        assert np.array_equal(getattr(a, f)[3], getattr(one, f)[0]), f
+    for w in range(4):
+        n = int(a.n_jobs[w])
+        assert np.all(np.diff(a.submit[w, :n]) >= 0)
+        assert np.all(np.isinf(a.submit[w, n:]))
+        assert a.ws_values[w].max() == grid.ws.peak[w]
+        assert a.ws_values[w].min() >= 1.0
+
+
+def assert_synth_close(want, got, rtol=1e-5):
+    """Two syntheses of one grid from the same draws, made on different
+    devices: counts and the padding exact, submit and runtime within
+    ``rtol`` (the devices' float32 sin / log differ in the last bit),
+    sizes exact per group of arrivals within ``rtol`` of each other
+    (such a group's order is not decided by the tolerance), WS demands
+    within 1 VM everywhere, equal at >= 99.9 % of the steps, peak
+    exact."""
+    np.testing.assert_array_equal(got.n_jobs, want.n_jobs)
+    for w in range(len(want.n_jobs)):
+        n = int(want.n_jobs[w])
+        sub_r, sz_r, rt_r = (x[w] for x in (want.submit, want.size,
+                                            want.runtime))
+        sub_p, sz_p, rt_p = (x[w] for x in (got.submit, got.size,
+                                            got.runtime))
+        np.testing.assert_allclose(sub_p[:n], sub_r[:n], rtol=rtol, atol=0)
+        assert np.all(np.isinf(sub_p[n:])) and np.all(sz_p[n:] == 0)
+        assert np.all(rt_p[n:] == 0)
+        brk = np.nonzero(np.diff(sub_r[:n]) > rtol * sub_r[1:n])[0] + 1
+        for a, b in zip(np.r_[0, brk], np.r_[brk, n]):
+            pr = sorted(zip(sz_r[a:b], rt_r[a:b]))
+            pp = sorted(zip(sz_p[a:b], rt_p[a:b]))
+            assert [s for s, _ in pr] == [s for s, _ in pp], (w, a, b)
+            np.testing.assert_allclose([r for _, r in pp],
+                                       [r for _, r in pr], rtol=rtol, atol=0)
+        v_r, v_p = want.ws_values[w], got.ws_values[w]
+        assert np.abs(v_p - v_r).max() <= 1.0
+        assert np.mean(v_p == v_r) >= 0.999
+        assert v_p.max() == v_r.max()
+
+
+def test_synthesize_on_the_card_equals_the_cpu():
+    """The draws come from CPU generators on every device, so a grid
+    synthesized on cuda equals the CPU's up to the transforms'
+    rounding (assert_synth_close)."""
+    from repro_torch.sim import scenarios as sc
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    grid = _scenario_grid(12, 2 * DAY, 400)
+    assert_synth_close(sc.synthesize(grid, "cpu"), sc.synthesize(grid))
 
 
 # ------------------------------------------- attention kernels on the card

@@ -32,6 +32,7 @@ from repro_torch.kernels import round_step as rsk
 from repro_torch.sim import faults, rounds
 from repro_torch.sim.contracts import CONTRACTS, FAULT_CONTRACT, no_lost_jobs
 from repro_torch.sim.engine import build_fb, clone_jobs, run_sim
+from repro_torch.sim.scan import _lane_prm_tree
 
 DAY = 24 * 3600.0
 CAPACITY, LEASE = 12, 3600.0
@@ -316,7 +317,7 @@ def test_lane_inputs_check_the_fault_table():
         [float(CAPACITY)], faults=[chaos_schedule(faults)], device="cpu")
     grid = rounds.FBGrid(capacity=torch.tensor([float(CAPACITY)]),
                          lease=torch.tensor([LEASE]))
-    ctx = rounds._lane_ctx("fb", rounds._rounds_prm_tree("fb", grid, 1), pk)
+    ctx = rounds._lane_ctx("fb", _lane_prm_tree("fb", grid, 1), pk)
     ftab = rsk.fault_table(ctx)
     assert ftab.shape == (1, 3, pk.fault_times.shape[1])
     inputs = rsk.lane_inputs("fb", ctx, ftab)

@@ -72,7 +72,7 @@ def test_port_imports_no_jax_and_no_reference():
                "repro_torch.models.mamba2, repro_torch.kernels.ssd_scan, "
                "repro_torch.launch.serve, repro_torch.sim.faults, "
                "repro_torch.core.runtime_bridge, "
-               "repro_torch.serving.replay; "
+               "repro_torch.serving.replay, repro_torch.sim.scenarios; "
                "from repro_torch.configs import all_configs; all_configs()")
 
 

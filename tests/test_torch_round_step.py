@@ -28,7 +28,7 @@ from repro.sim import rounds as ref_rounds
 from repro.sim import traces as ref_traces
 from repro_torch.kernels import round_step as rsk
 from repro_torch.sim import rounds
-from repro_torch.sim.scan import FBGrid, FLBGrid
+from repro_torch.sim.scan import FBGrid, FLBGrid, _lane_prm_tree
 
 DAY = 24 * 3600.0
 K = 16
@@ -76,7 +76,7 @@ def port_lanes(policy, dtype, batch):
                        G=torch.full((2,), 2.0, dtype=f), lease=col[2])
     spec = rounds.RoundsSpec(duration=HORIZON, max_rounds=4096, window=K,
                              batch=batch, kernel="torch")
-    prm = rounds._rounds_prm_tree(policy, grid, 1)
+    prm = _lane_prm_tree(policy, grid, 1)
     ctx = rounds._lane_ctx(policy, prm, pk)
     sc, win = rounds._startup(policy, ctx, spec, pk.ws0[prm["w_idx"]])
     return rsk.lane_inputs(policy, ctx), sc, win, spec

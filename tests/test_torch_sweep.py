@@ -151,8 +151,8 @@ def test_rounds_rows_inside_contract_vs_event_engine(workload, rounds_rows):
 def test_sweep_modes_devices_and_fallbacks(workload):
     jobs, ws = workload
     fb = SweepPoint("fb", capacity=40)
-    with pytest.raises(ValueError, match="not ported yet"):
-        run_sweep([fb], jobs, ws, HORIZON, mode="scan", device="cpu")
+    assert run_sweep([fb], jobs, ws, HORIZON, mode="scan",
+                     device="cpu")[0]["engine"] == "scan"
     with pytest.raises(ValueError, match="unknown mode"):
         run_sweep([fb], jobs, ws, HORIZON, mode="fast", device="cpu")
     with pytest.raises(NotImplementedError, match="lane splitter"):

@@ -3,6 +3,9 @@
 ``resolve_device`` is the one place that decides where work runs: the
 card by default, the CPU only when the caller asks for it. There is no
 silent CPU fallback — a caller that wants the CPU says so.
+``resolve_backend`` is the one place that decides what runs there: a
+CUDA kernel on the card, its plain PyTorch version on the CPU, and the
+plain version on the card only when the caller asks for it.
 
 ``resolve_pack_dtype`` is the counterpart of ``repro.compat.
 resolve_pack_dtype``: packs default to float32 (what the JAX package
@@ -16,10 +19,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_pack_dtype", "check_devices",
-           "Device"]
+__all__ = ["resolve_device", "resolve_backend", "resolve_pack_dtype",
+           "check_devices", "BACKENDS", "Device"]
 
 Device = Optional[Union[str, torch.device]]
+# "cuda": the hand-written kernels; "torch": their plain PyTorch versions.
+BACKENDS = ("cuda", "torch")
 
 
 def resolve_device(device: Device = None) -> torch.device:
@@ -40,6 +45,24 @@ def resolve_device(device: Device = None) -> torch.device:
         raise ValueError(f"unsupported device {device!r}; expected cuda "
                          f"or cpu")
     return dev
+
+
+def resolve_backend(choice: Optional[str], device: torch.device,
+                    name: str = "impl", plain_on_cpu: bool = False) -> str:
+    """The backend that runs on ``device``: ``None`` → ``"cuda"`` on a
+    CUDA device and ``"torch"`` on the CPU; ``"torch"`` on a card only
+    when asked for. ``"cuda"`` on the CPU raises, unless
+    ``plain_on_cpu``: then the kernels' wrappers are called and each runs
+    its plain version on the CPU tensors it is given. ``name`` is the
+    caller's option in messages."""
+    if choice is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if choice not in BACKENDS:
+        raise ValueError(f"{name} {choice!r}: expected one of {BACKENDS}")
+    if choice == "cuda" and device.type != "cuda" and not plain_on_cpu:
+        raise ValueError(f"{name}=\"cuda\" needs CUDA tensors; the CPU "
+                         f"runs {name}=\"torch\"")
+    return choice
 
 
 def resolve_pack_dtype(dtype=None) -> np.dtype:

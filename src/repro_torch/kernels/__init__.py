@@ -19,6 +19,12 @@ version, for NVIDIA Hopper (``sm_90a``).
   a block per chunk, its products on the tensor cores, the state handed
   from chunk to chunk by a chained scan), replacing
   ``repro.kernels.ssd_scan.ssd_scan_bh``. Source: ``csrc/ssd_scan.cu``.
+* ``jaxsim_step.py`` — the §6.6.4 FLB-NUB tick simulator's whole run
+  over parameter lanes in one launch, a block per lane
+  (``simulate_kernel``; plain version ``simulate_ref``), used by
+  ``repro_torch.core.jaxsim``. It has no Pallas counterpart: the JAX
+  package runs ``repro.core.jaxsim.simulate`` as a vmapped ``lax.scan``.
+  Source: ``csrc/jaxsim.cu``.
 * ``ref.py`` — the model kernels' plain versions; ``ops.py`` — the
   model-layout entry points the models call.
 

@@ -1,6 +1,6 @@
 """Decoder LM assembly: the counterpart of ``repro.models.transformer``
-for dense self-attention models (gemma2, smollm, qwen) and Mamba2 SSM
-models (mamba2).
+for dense self-attention models (gemma2, smollm, qwen), Mixture-of-Experts
+models (granite-moe, grok-1) and Mamba2 SSM models (mamba2).
 
 ``Model`` is an ``nn.Module`` that holds its weights with the JAX
 package's parameter tree as its state-dict names (``embed``,
@@ -20,13 +20,14 @@ Entry points:
 ``impl="cuda"`` runs attention through the flash-attention and
 flash-decode kernels and the Mamba2 scan through the SSD kernel
 (``kernels/ops``), ``impl="torch"`` through the plain tensor path;
-``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
-Caches are updated in place; Mamba caches are float32 whatever the cache
+``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU
+(``compat.resolve_backend``); ``"cuda"`` on the CPU calls the kernels'
+wrappers, which run their plain versions on CPU tensors. Caches are updated in place; Mamba caches are float32 whatever the cache
 dtype asked for, as in the reference.
 
 Not ported yet (raise ``NotImplementedError``): the hybrid jamba stack,
-cross-attention (vlm / audio), MoE MLPs, encoders, and the training
-``loss`` (ROADMAP, queued work of the port).
+cross-attention (vlm / audio), encoders, and the training ``loss``
+(ROADMAP, queued work of the port).
 """
 
 from __future__ import annotations
@@ -37,17 +38,15 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from repro_torch.compat import Device, resolve_device
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA,
+from repro_torch.compat import Device, resolve_backend, resolve_device
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE,
                                       NONE, ArchConfig, LayerSpec)
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mlp as F
 from repro_torch.models.common import KeyGen, normal_init, rms_norm, softcap
 
-__all__ = ["Model", "IMPLS"]
-
-IMPLS = ("torch", "cuda")
+__all__ = ["Model"]
 
 
 def _unsupported(cfg: ArchConfig, pattern) -> Optional[str]:
@@ -60,8 +59,8 @@ def _unsupported(cfg: ArchConfig, pattern) -> Optional[str]:
             return f"the {sp.mixer!r} mixer (cross-attention)"
         if sp.cross:
             return "cross-attention sublayers"
-        if sp.mlp not in (DENSE, NONE):
-            return f"the {sp.mlp!r} MLP (MoE)"
+        if sp.mlp not in (DENSE, MOE, NONE):
+            return f"the {sp.mlp!r} MLP"
     return None
 
 
@@ -88,10 +87,13 @@ class _Layer(nn.Module):
             name: _param((n,) + shape, dt, device)
             for name, (shape, dt) in mix.items()})
         if spec.mlp != NONE:
+            shapes = (F.moe_mlp_shapes(cfg) if spec.mlp == MOE
+                      else F.dense_mlp_shapes(cfg))
             self.norm2 = _param((n, d), torch.float32, device)
             self.mlp = nn.ParameterDict({
-                name: _param((n,) + shape, dtype, device)
-                for name, (shape, _) in F.dense_mlp_shapes(cfg).items()})
+                name: _param((n,) + shape, F.ROUTER_DTYPE
+                             if name == "router" else dtype, device)
+                for name, (shape, _) in shapes.items()})
 
 
 def _tree(module: nn.Module) -> Dict:
@@ -122,11 +124,7 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        if impl is None:
-            impl = "cuda" if self.device.type == "cuda" else "torch"
-        if impl not in IMPLS:
-            raise ValueError(f"impl {impl!r}: expected one of {IMPLS}")
-        self.impl = impl
+        self.impl = resolve_backend(impl, self.device, plain_on_cpu=True)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
         self.pattern = cfg.layer_pattern()
@@ -134,8 +132,8 @@ class Model(nn.Module):
         if missing:
             raise NotImplementedError(
                 f"{cfg.name}: {missing} is not ported yet (ROADMAP, queued "
-                f"work of the port); the port runs dense self-attention "
-                f"and Mamba2 models")
+                f"work of the port); the port runs dense and MoE "
+                f"self-attention models and Mamba2 models")
         dev = self.device
         self.embed = _param((cfg.vocab, cfg.d_model), param_dtype, dev)
         self.final_norm = _param((cfg.d_model,), torch.float32, dev)
@@ -146,10 +144,9 @@ class Model(nn.Module):
     def with_impl(self, impl: str) -> "Model":
         """A view of this model (the same weight tensors) that runs
         ``impl``."""
-        if impl not in IMPLS:
-            raise ValueError(f"impl {impl!r}: expected one of {IMPLS}")
         other = copy.copy(self)
-        other.__dict__["impl"] = impl
+        other.__dict__["impl"] = resolve_backend(impl, self.device,
+                                                 plain_on_cpu=True)
         return other
 
     # ------------------------------------------------------------- params
@@ -176,8 +173,9 @@ class Model(nn.Module):
                 for name, t in init_mix(kg, cfg, dt, dev).items():
                     layer.mix[name][i].copy_(t)
                 if hasattr(layer, "mlp"):
-                    for name, t in F.init_dense_mlp(kg, cfg, dt,
-                                                    dev).items():
+                    init_mlp = F.init_moe if sp.mlp == MOE \
+                        else F.init_dense_mlp
+                    for name, t in init_mlp(kg, cfg, dt, dev).items():
                         layer.mlp[name][i].copy_(t)
         return self
 
@@ -250,7 +248,8 @@ class Model(nn.Module):
             x = x + out
             if sp.mlp != NONE:
                 h2 = rms_norm(x, lp["norm2"])
-                x = x + F.dense_mlp(lp["mlp"], h2)
+                x = x + (F.moe_mlp(lp["mlp"], h2, self.cfg)
+                         if sp.mlp == MOE else F.dense_mlp(lp["mlp"], h2))
         return x
 
     def _run_blocks(self, params, x, mode, cache=None, pos=None):

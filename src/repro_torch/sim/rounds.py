@@ -66,7 +66,7 @@ __all__ = [
     "ws_fold_tables_batch", "fb_rounds_row",
     "fold_table_cache_info", "fold_table_cache_clear",
     "FB_ROUNDS_WINDOW", "FLB_ROUNDS_WINDOW", "ROUNDS_FF_PASSES",
-    "COMPACT_EVERY", "COALESCE_BATCH", "DEFAULT_BATCH", "KERNELS",
+    "COMPACT_EVERY", "COALESCE_BATCH", "DEFAULT_BATCH",
 ]
 
 # Window sizes, pass count, compaction cadence and coalescing batch are
@@ -77,7 +77,6 @@ ROUNDS_FF_PASSES = 2
 COMPACT_EVERY = 8
 COALESCE_BATCH = 8
 DEFAULT_BATCH = 1
-KERNELS = ("cuda", "torch")
 _FAULT_FIELDS = ("fault_times", "fault_failed", "fault_wsv")
 
 
@@ -105,7 +104,7 @@ class RoundsSpec:
     kernel: Optional[str] = None
 
     def __post_init__(self):
-        if self.kernel is not None and self.kernel not in KERNELS:
+        if self.kernel is not None and self.kernel not in compat.BACKENDS:
             raise ValueError(
                 f"unknown rounds kernel {self.kernel!r}; expected "
                 f"\"cuda\" or \"torch\"")
@@ -120,12 +119,7 @@ class RoundsSpec:
                     "fault injection is not supported by the fused CUDA "
                     "round step; use kernel=\"torch\"")
             return "torch"
-        if self.kernel is None:
-            return "cuda" if device.type == "cuda" else "torch"
-        if self.kernel == "cuda" and device.type != "cuda":
-            raise ValueError("kernel=\"cuda\" needs CUDA tensors; the CPU "
-                             "runs kernel=\"torch\"")
-        return self.kernel
+        return compat.resolve_backend(self.kernel, device, "kernel")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,11 @@ batch runs one kernel launch per policy with the plain step's rows, and
 scenario synthesis is deterministic per seed on the card and equals the
 CPU's up to the transforms' rounding; the flash
 attention and flash decode kernels must match ``kernels.ref`` (see the
-tolerances below), and a reduced model's kernel path its plain path.
+tolerances below), and a reduced model's kernel path its plain path; a
+reduced MoE model's prefill on the card equals the CPU's; the jaxsim
+kernel (one launch per study) gives the plain version's rows on random
+grids, float32 and float64, with the job state in shared memory and,
+for a table too large for it, in global memory.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
 """
 
@@ -488,6 +492,7 @@ ATTN_CASES = [
     (16, 4, 300, 128, 40, 50.0), (8, 1, 130, 32, None, None),
     (4, 4, 70, 16, 20, None), (32, 4, 200, 64, 9, 30.0),
     (8, 2, 1000, 256, None, 50.0),
+    (24, 8, 1000, 64, None, None),      # granite-moe-3b: hd 64, G 3
 ]
 DECODE_CASES = [
     # (bkv, g, S, hd, pos, window, softcap)
@@ -495,6 +500,7 @@ DECODE_CASES = [
     (4, 2, 1100, 32, 1099, 512, 30.0), (4, 4, 1100, 256, 1050, None, None),
     (4, 2, 88, 16, 80, 64, 50.0), (6, 3, 40, 64, 23, None, None),
     (32, 2, 8192, 256, 6000, 4096, 50.0),   # gemma2-2b, batch 8
+    (64, 3, 8192, 64, 4616, None, None),    # granite-moe-3b, batch 8
     # pos 0; the last key of a chunk (64 keys at hd 256 in bfloat16, 32
     # in float32) and the first of the next; G 8
     (4, 2, 1024, 256, 0, None, 50.0), (4, 2, 1024, 256, 127, None, None),
@@ -897,3 +903,144 @@ def test_ssd_scan_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan_bh(x, torch.zeros(2, 16), B, B)
     assert ssd_scan_bh.launches == before
+
+
+# --------------------------------------------------- MoE models on the card
+
+def test_moe_model_prefill_on_the_card_equals_cpu():
+    """Reduced granite_moe_3b: prefill and a decode step on the card (the
+    attention kernels, the MoE layer's batched products) against the CPU
+    plain route with the same weights, float32 at the models' tolerance
+    widened to 1e-4 for the kernels' summation order."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.transformer import Model
+    dev = _cuda_or_skip()
+    cfg = reduced_config(get_config("granite_moe_3b"))
+    cpu = Model(cfg, "cpu", compute_dtype=torch.float32).init(0)
+    card = Model(cfg, dev, compute_dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 81),
+                         generator=torch.Generator().manual_seed(2))
+    outs = []
+    for m, d in ((card, dev), (cpu, torch.device("cpu"))):
+        cache = m.init_cache(2, 96, dtype=torch.float32)
+        lg0, cache = m.prefill({"tokens": toks[:, :80].to(d)}, cache)
+        lg1, _ = m.decode(toks[:, 80:].to(d), cache, 80)
+        outs.append((lg0.cpu(), lg1.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=5e-4)
+
+
+# ------------------------------------------- the jaxsim kernel on the card
+#
+# simulate_kernel against simulate_ref on the same CUDA tensors: completed
+# jobs, peak, adjust events and node-hours exactly (integer-valued sums),
+# avg_turnaround within rtol 1e-5 (float32) or 1e-6 (float64): the
+# kernel sums the turnarounds in float64, the plain version in the dtype.
+
+JAXSIM_RTOL = {torch.float32: 1e-5, torch.float64: 1e-6}
+
+
+def _random_lanes(n_lanes, seed, dev, dtype):
+    g = torch.Generator().manual_seed(seed)
+    prm = torch.stack([
+        torch.randint(13, 160, (n_lanes,), generator=g).float(),
+        1.0 + torch.rand(n_lanes, generator=g),
+        0.05 + 0.5 * torch.rand(n_lanes, generator=g),
+        0.2 + 0.8 * torch.rand(n_lanes, generator=g)], -1)
+    return prm.to(dev, dtype).contiguous()
+
+
+def _random_table(n_jobs, n_steps, seed, dev, dtype, lease=3600.0):
+    """Jobs over the first 80 % of the run, sizes 1-128 (many small),
+    runtimes 5 min to 20 h; WS demand 0-200 VMs per substep."""
+    g = torch.Generator().manual_seed(seed)
+    horizon = 0.8 * n_steps * lease / 12
+    submit = torch.sort(torch.rand(n_jobs, generator=g) * horizon).values
+    size = torch.minimum(torch.floor(2.0 ** (torch.rand(n_jobs, generator=g)
+                                             * 7.0)), torch.tensor(128.0))
+    runtime = 300.0 + torch.rand(n_jobs, generator=g) * 72000.0
+    ws = torch.randint(0, 200, (n_steps,), generator=g).float()
+    return [x.to(dev, dtype).contiguous() for x in (submit, size, runtime,
+                                                    ws)]
+
+
+def _hold_jaxsim(got, want, dtype):
+    for k in ("completed_jobs", "peak_nodes", "adjust_events",
+              "node_hours"):
+        assert torch.equal(got[k], want[k]), (k, got[k], want[k])
+    torch.testing.assert_close(got["avg_turnaround"],
+                               want["avg_turnaround"],
+                               rtol=JAXSIM_RTOL[dtype], atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_jobs,n_steps,n_lanes", [
+    (2603, 600, 37),       # a NASA-sized table, in shared memory
+    (300, 1500, 5),
+    (16000, 240, 3),       # past the shared-memory limit: global scratch
+])
+def test_jaxsim_kernel_equals_plain_on_the_card(n_jobs, n_steps, n_lanes,
+                                                dtype):
+    from repro_torch.kernels import jaxsim_step as jk
+    dev = _cuda_or_skip()
+    prm = _random_lanes(n_lanes, n_jobs + n_steps, dev, dtype)
+    table = _random_table(n_jobs, n_steps, n_jobs, dev, dtype)
+    kw = dict(n_steps=n_steps, lease_seconds=3600.0, lb_ws=12, substeps=12)
+    assert jk.fits_shared_memory(n_jobs, dtype, dev) == (n_jobs < 16000)
+    before = jk.simulate_kernel.launches
+    got = jk.simulate_kernel(prm, *table, **kw)
+    want = jk.simulate_ref(prm, *table, **kw)
+    torch.cuda.synchronize()
+    assert jk.simulate_kernel.launches == before + 1
+    assert int(got["completed_jobs"].sum()) > 0
+    assert float(got["adjust_events"].sum()) > 0
+    _hold_jaxsim(got, want, dtype)
+
+
+def test_jaxsim_sweep_on_the_card_equals_cpu():
+    """The §6.6.4 study's first points over a 2-day cut: the entry point
+    on the card (one launch) equals the CPU's plain rows."""
+    from repro_torch.core import jaxsim
+    from repro_torch.kernels import jaxsim_step as jk
+    dev = _cuda_or_skip()
+    jobs = [j for j in traces.nasa_ipsc(0) if j.submit < 2 * DAY]
+    ws = traces.worldcup98(0, peak_vms=128)
+    grid = [{"B": b, "U": u, "V": v, "G": g} for b, u, v, g in (
+        (13, 1.2, 0.2, 0.5), (154, 2.0, 0.5, 0.99), (25, 1.0, 0.1, 0.25))]
+    for dtype in (None, np.float64):
+        before = jk.simulate_kernel.launches
+        got = jaxsim.sweep(grid, jobs, ws, 2 * DAY, device=dev, dtype=dtype)
+        assert jk.simulate_kernel.launches == before + 1
+        want = jaxsim.sweep(grid, jobs, ws, 2 * DAY, device="cpu",
+                            dtype=dtype)
+        rtol = 1e-6 if dtype else 1e-5
+        for a, b in zip(got, want):
+            assert {k: v for k, v in a.items() if k != "avg_turnaround"} \
+                == {k: v for k, v in b.items() if k != "avg_turnaround"}
+            assert a["avg_turnaround"] == pytest.approx(b["avg_turnaround"],
+                                                        rel=rtol)
+
+
+def test_jaxsim_kernel_refuses_bad_inputs():
+    from repro_torch.kernels import jaxsim_step as jk
+    dev = _cuda_or_skip()
+    prm = _random_lanes(2, 0, dev, torch.float32)
+    table = _random_table(50, 24, 0, dev, torch.float32)
+    kw = dict(n_steps=24, lease_seconds=3600.0)
+    before = jk.simulate_kernel.launches
+    with pytest.raises(ValueError, match="ws"):
+        jk.simulate_kernel(prm, *table[:3], table[3][:20], **kw)
+    with pytest.raises(ValueError, match="prm"):
+        jk.simulate_kernel(prm[:, :3].contiguous(), *table, **kw)
+    with pytest.raises(TypeError, match="size"):
+        jk.simulate_kernel(prm, table[0], table[1].double(), *table[2:],
+                           **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        jk.simulate_kernel(prm, table[0], table[1].repeat(2)[::2],
+                           *table[2:], **kw)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        jk.simulate_kernel(*(x.half() for x in [prm, *table]), **kw)
+    with pytest.raises(ValueError, match="simulate_ref"):
+        jk.simulate_kernel(prm.cpu(), *(x.cpu() for x in table), **kw)
+    assert jk.simulate_kernel.launches == before

@@ -127,6 +127,42 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    as in the reference), teacher-forced against the plain
                    route (logits within 0.25, argmax agreement at least
                    0.9); the prefill's device split (SSD kernel ms)
+  the last two families (kernel cases added to attn_kernel_vs_plain,
+  decode_kernel_vs_plain and ssd_kernel_vs_plain, lines of those names)
+                   attention at hd 128, G 8 (llama-3.2-vision's and
+                   jamba's layers: 64 / 8 heads, no window, no softcap)
+                   in bfloat16 at batch 8, S 2048 and S 1024 and in
+                   float32 at batch 1, S 2048, and at hd 64, G 1
+                   (whisper's decoder: 8 / 8 heads) in bfloat16 at batch
+                   8 and float32 at batch 1, S 416; decode at both
+                   shapes at each generate phase's first and last
+                   position, both dtypes; the SSD scan at jamba's widths
+                   (128 heads of P 128, N 128, one B / C group) through
+                   ops.ssd, which copies B / C to each head: bfloat16 at
+                   batch 8, L 2048, float32 at batch 1, L 2048 with a
+                   start state, with the kernel's time alone and
+                   ops.ssd's beside it
+  serve_whisper    whisper-base at full width and depth (6 encoder and 6
+                   decoder layers, 1500 frames), float32: 8 requests of
+                   64-416 prompt tokens into the decoder's 448-token
+                   context, the serving engine's frontend of zeros; 6
+                   flash-attention launches per admission (the encoder's
+                   bidirectional attention is plain tensor code, as in
+                   the reference), each admission's logits equal a plain
+                   prefill's
+  generate_whisper, generate_vision, generate_hybrid
+                   as generate, bfloat16, batch 8, 32 steps: whisper-base
+                   (prompt 416, context 448, a random 1500-frame
+                   frontend; 6 + 6 x 32 launches), llama-3.2-vision-90b
+                   at full width and 10 of its 100 layers (8
+                   self-attention, 2 cross-attention; prompt 1024, a
+                   random 1601-patch frontend; 8 + 8 x 32 launches, the
+                   cross layers none) and jamba-1.5-large at full width
+                   for its mixers, one period of 8 layers, d_ff cut to
+                   3072 (prompt 2048; 1 flash attention, 7 SSD, 32 flash
+                   decode launches; the plain route replays the kernel
+                   route's MoE routing, as generate_moe); each phase
+                   lists its cuts in ``reduced``
   chaos            the chaos tier at the paper's scale: FB at C 135 over
                    two weeks (NASA iPSC, WorldCup peak 128, lease 1 h,
                    float32), one pack of three lanes, each with its own
@@ -175,7 +211,8 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    retries; host walls
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba, jaxsim,
-                   serve_moe, generate_moe), times, bound; jaxsim with its
+                   serve_moe, generate_moe, serve_whisper and the three
+                   new generate phases), times, bound; jaxsim with its
                    serial chain and the factorial's launch; granite's
                    attention and decode rows suffixed _moe; attention and
                    decode one row per dtype on its
@@ -184,7 +221,12 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    generate_mamba, ssd_scan_f32: serve_mamba); round_step per
                    one-launch run of the sweep, with its outer steps, the
                    one-step entry's time per launch and the same for the
-                   coalesced sweep, and the scenario batch's two runs
+                   coalesced sweep, and the scenario batch's two runs; the
+                   last two families' rows suffixed _whisper, _vision and
+                   _jamba (flash_attention_f32_whisper: serve_whisper;
+                   the bfloat16 rows: their generate phases;
+                   ssd_scan_bf16_jamba with ops.ssd's time and the bytes
+                   of its B / C copies)
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits 1 and prints no result. It imports only ``torch``,
@@ -210,7 +252,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs.base import MOE, get_config  # noqa: E402
+from repro_torch.configs.base import ATTN, MOE, get_config  # noqa: E402
 from repro_torch.core import jaxsim as jaxsimlib  # noqa: E402
 from repro_torch.core.jobs import Job  # noqa: E402
 from repro_torch.core.profiles import scale_profile  # noqa: E402
@@ -219,12 +261,14 @@ from repro_torch.core.runtime_bridge import LiveCloud  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
 from repro_torch.kernels import jaxsim_step as jsk  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import round_step as rsk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.models import mlp as mlpmod  # noqa: E402
 from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
-from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.models.transformer import (FRONTEND_FAMILIES,  # noqa: E402
+                                            Model)
 from repro_torch.serving.autoscaler import AutoscaledService  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.replay import replay  # noqa: E402
@@ -1641,6 +1685,29 @@ GEN_SSM_BATCH, GEN_SSM_PROMPT = 8, 4096
 # positions; serve_moe and generate_moe as serve and generate.
 MOE_ARCH = "granite_moe_3b"
 
+# The last two model families, each at full width. whisper-base (6
+# encoder and 6 decoder layers, d 512, 8 / 8 heads of 64, vocab 51865,
+# 1500 frames), full depth: float32 serving of 8 requests of 64-416
+# prompt tokens with the serving engine's frontend of zeros, and bfloat16
+# generation at batch 8 over a 416-token prompt into the decoder's real
+# 448-token context (arXiv:2212.04356). llama-3.2-vision-90b (d 8192, 64 /
+# 8 heads of 128, d_ff 28672, vocab 128256, 1601 patches) at 2 of its 20
+# periods: 10 layers, 8 self-attention and 2 cross-attention (9.6 B
+# parameters, 19 GB in bfloat16; all 100 layers, 90 B, do not fit one 80
+# GB card). jamba-1.5-large (d 8192, 64 / 8 heads of 128, 128 SSM heads
+# of 128, state 128, 16 experts top-2) at one period of 8 layers with
+# d_ff cut 24576 -> 3072 (8.7 B parameters; one period at full d_ff is
+# 44.6 B, 89 GB in bfloat16): the cut falls on the MLPs, plain tensor
+# code, so the kernels see the model's own shapes. The prompts keep the
+# plain route's float32 + bfloat16 score tensors near 13 GB (8 x 64 x
+# 2048^2 x 6 bytes at jamba's 2048).
+WHISPER_ARCH = "whisper_base"
+WHISPER_PROMPTS = tuple(int(x) for x in np.linspace(64, 416, 8))
+WHISPER_CONTEXT = 448
+GEN_WHISPER_PROMPT = WHISPER_CONTEXT - GEN_STEPS
+VISION_ARCH, VISION_LAYERS, VISION_PROMPT = "llama32_vision_90b", 10, 1024
+HYBRID_ARCH, HYBRID_D_FF, HYBRID_PROMPT = "jamba15_large_398b", 3072, 2048
+
 
 def visible_pairs(s, window):
     """(query, key) pairs causal attention with ``window`` evaluates."""
@@ -1735,14 +1802,15 @@ def window_mask(s, window, device):
     return (cols <= rows) & (cols > rows - window)
 
 
-def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
-    """flash_decode_bkv vs flash_decode_ref at batch 8 over an 8192
-    cache; q scaled by ``q_scale``."""
+def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0,
+                cache=DECODE_CACHE):
+    """flash_decode_bkv vs flash_decode_ref at batch 8 over a ``cache``
+    of keys; q scaled by ``q_scale``."""
     kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_
     bkv = DECODE_BATCH * kv
     q = (torch.randn(bkv, g, hd, generator=gen, device=device)
          * q_scale).to(dtype)
-    k, v = (torch.randn(bkv, DECODE_CACHE, hd, generator=gen,
+    k, v = (torch.randn(bkv, cache, hd, generator=gen,
                         device=device).to(dtype) for _ in range(2))
     at = torch.tensor(pos, dtype=torch.int32, device=device)
     cap = cfg.attn_softcap
@@ -1758,13 +1826,13 @@ def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
     if q_scale != 1.0:
         check["no_cap_within_tol"] = compare(got, kref.flash_decode_ref(
             q, k, v, at, window=window), dtype)["within_tol"]
-    cols = torch.arange(DECODE_CACHE, device=device)
+    cols = torch.arange(cache, device=device)
     valid = cols <= pos
     if window is not None:
         valid &= cols > pos - window
     ql = q.reshape(DECODE_BATCH, kv * g, 1, hd)
-    kl = k.reshape(DECODE_BATCH, kv, DECODE_CACHE, hd)
-    vl = v.reshape(DECODE_BATCH, kv, DECODE_CACHE, hd)
+    kl = k.reshape(DECODE_BATCH, kv, cache, hd)
+    vl = v.reshape(DECODE_BATCH, kv, cache, hd)
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -1778,7 +1846,7 @@ def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0):
     bound_ms, bound_by = bound(nbytes, flops, CORE_PEAK_FLOPS[dtype])
     out = dict(arch=cfg.name, pos=pos, window=window, dtype=str(dtype)[6:],
                batch=DECODE_BATCH, kv_heads=kv, group=g, head_dim=hd,
-               cache=DECODE_CACHE, softcap=cap, q_scale=q_scale, **check,
+               cache=cache, softcap=cap, q_scale=q_scale, **check,
                ms=ms, ms_device_bound=device_bound,
                gb_per_s=nbytes / ms / 1e6, bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 5)[0],
@@ -1983,7 +2051,10 @@ def ssm_states(cache):
 def serve_phase(cfg, device, phase, prompts, max_len, kernel):
     """The serving path at full width: AutoscaledService of Replicas that
     share one float32 model, one request per prompt length; ``kernel``
-    launches once per layer of each admission's prefill."""
+    launches once per layer of ``cfg.n_layers`` (a vlm / audio model:
+    the decoder's) in each admission's prefill. Each admission's batch
+    (with the engine's frontend, where it has one) is kept for the plain
+    prefill it is held against."""
     model = Model(cfg, device, compute_dtype=torch.float32).init(LM_SEED)
     prefills = []
     prefill = model.prefill
@@ -1992,7 +2063,7 @@ def serve_phase(cfg, device, phase, prompts, max_len, kernel):
         t0 = time.perf_counter()
         logits, cache = prefill(batch, cache)
         torch.cuda.synchronize()
-        prefills.append((batch["tokens"], logits, ssm_states(cache),
+        prefills.append((batch, logits, ssm_states(cache),
                          time.perf_counter() - t0))
         return logits, cache
 
@@ -2035,9 +2106,10 @@ def serve_phase(cfg, device, phase, prompts, max_len, kernel):
     # its prompt.
     plain = model.with_impl("torch")
     errs, state_errs = [], []
-    for toks, logits, states, _ in prefills:
-        cache = plain.init_cache(1, toks.shape[1], dtype=torch.float32)
-        want, cache = plain.prefill({"tokens": toks}, cache)
+    for batch, logits, states, _ in prefills:
+        cache = plain.init_cache(1, batch["tokens"].shape[1],
+                                 dtype=torch.float32)
+        want, cache = plain.prefill(batch, cache)
         errs.append(float((logits - want).abs().max()))
         want_states = ssm_states(cache)
         state_errs += [errors(states[k], want_states[k], *SSD_STATE_TOL)
@@ -2046,10 +2118,10 @@ def serve_phase(cfg, device, phase, prompts, max_len, kernel):
     # Where a serving step's time goes: the longest admission's prefill
     # through the kernels, and one decode step of a full replica (4 slots
     # at their own positions).
-    toks = prefills[-1][0]
+    batch = prefills[-1][0]
     prefill_profile = breakdown(lambda: model.prefill(
-        {"tokens": toks}, model.init_cache(1, toks.shape[1],
-                                           dtype=torch.float32)),
+        batch, model.init_cache(1, batch["tokens"].shape[1],
+                                dtype=torch.float32)),
         sum_of=PREFILL_KERNELS)
     cache = model.init_cache(SERVE_SLOTS, max_len, dtype=torch.float32)
     slot_pos = torch.as_tensor(prompts[-SERVE_SLOTS:], device=device)
@@ -2121,13 +2193,14 @@ class MoERouting:
         return self._patched(lambda xl, router, cfg: self.log.pop(0))
 
 
-def plain_logits(model, toks, batch, cache_len, prompt, fed):
+def plain_logits(model, inputs, batch, cache_len, prompt, fed):
     """The plain route (impl="torch") teacher-forced on ``fed``: its
-    prefill's last-token logits and each step's."""
+    prefill's last-token logits and each step's. ``inputs``: the
+    prefill's batch (tokens, and a vlm / audio model's frontend)."""
     plain = model.with_impl("torch")
     cache = plain.init_cache(batch, cache_len, dtype=torch.bfloat16)
-    lp0, cache = plain.prefill({"tokens": toks}, cache)
-    pos = torch.tensor(prompt, device=toks.device)
+    lp0, cache = plain.prefill(inputs, cache)
+    pos = torch.tensor(prompt, device=lp0.device)
     steps = []
     for tok in fed:
         lp, cache = plain.decode(tok[:, None], cache, pos)
@@ -2176,11 +2249,16 @@ def other_gemm_order():
             pick(saved_lib)
 
 
-def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
+def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected,
+                   reduced=None):
     """The decode cell's path: bfloat16 weights and compute, a batch
     prefill of ``prompt`` tokens, then GEN_STEPS decode steps at one
     scalar position; the plain route replays the same tokens
-    (teacher-forced). ``expected``: the launches of each kernel.
+    (teacher-forced). ``expected``: the launches of each kernel;
+    ``reduced``: the cuts of ``cfg`` from the published config, reported.
+    A vlm / audio model's prefill takes a frontend of standard-normal
+    patch / frame embeddings from a seeded generator (the serving
+    engine's zeros would make every cross-attention sublayer add 0).
 
     MoE models: the plain route also replays the kernel route's routing
     choices, and the limits hold on that comparison. bfloat16 noise
@@ -2200,11 +2278,16 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
     rng = np.random.default_rng(LM_SEED + 1)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt)),
                            device=device)
+    inputs = {"tokens": toks}
+    if cfg.family in FRONTEND_FAMILIES:
+        inputs["frontend"] = torch.randn(
+            batch, cfg.frontend_len, cfg.d_model, device=device,
+            generator=torch.Generator(device=device).manual_seed(LM_SEED))
     zero_counts()
     with routing.record() if moe else nullcontext():
         t0 = time.perf_counter()
         cache = model.init_cache(batch, cache_len, dtype=torch.bfloat16)
-        lg0, cache = model.prefill({"tokens": toks}, cache)
+        lg0, cache = model.prefill(inputs, cache)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         pos = torch.tensor(prompt, device=device)
@@ -2228,12 +2311,11 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
     del cache
     torch.cuda.empty_cache()
     prefill_profile = breakdown(lambda: model.prefill(
-        {"tokens": toks}, model.init_cache(batch, cache_len,
-                                           dtype=torch.bfloat16)),
+        inputs, model.init_cache(batch, cache_len, dtype=torch.bfloat16)),
         sum_of=PREFILL_KERNELS)
     torch.cuda.empty_cache()
     moe_out = {}
-    args = (model, toks, batch, cache_len, prompt, fed)
+    args = (model, inputs, batch, cache_len, prompt, fed)
     if moe:
         dropped, routed = routing.dropped()
         free = plain_logits(*args)
@@ -2263,6 +2345,9 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
             lg0, logits, *plain_logits(*args))
     out = dict(arch=cfg.name, dtype="bfloat16", batch=batch,
                prompt=prompt, steps=GEN_STEPS, cache=cache_len,
+               reduced=reduced, layers=cfg.n_layers,
+               frontend=list(inputs["frontend"].shape)
+               if "frontend" in inputs else None,
                prefill_s=prefill_s, decode_s=decode_s,
                decode_ms_per_step=1e3 * decode_s / GEN_STEPS,
                tokens_per_s=batch * GEN_STEPS / decode_s,
@@ -2273,6 +2358,9 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
                step_flash_decode_device_ms=step_profile["flash_decode_ms"],
                prefill_max_abs_err=prefill_err,
                step_max_abs_err=max(errs), step_mean_abs_err=max(means),
+               step_max_abs_errs=errs,
+               logit_max_abs=max(float(x.float().abs().max())
+                                 for x in [lg0] + logits),
                argmax_agreement=sum(agree) / len(agree), tol=GEN_TOL,
                min_argmax_agreement=GEN_MIN_AGREEMENT, **moe_out,
                prefill_profile=prefill_profile, step_profile=step_profile)
@@ -2290,25 +2378,39 @@ def generate_phase(cfg, device, phase, batch, prompt, cache_len, expected):
 
 
 def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
-             strong_decay=False, sequential=False):
+             strong_decay=False, sequential=False, via_ops=False):
     """ssd_scan_bh vs ssd_scan_bh_ref at the model's heads, head dim and
     state, inputs scaled as the reference's tests scale them; with
-    ``sequential``, both also against the token-by-token ssd_ref."""
+    ``sequential``, both also against the token-by-token ssd_ref. With
+    ``via_ops``, the inputs are drawn in the model's layout with one B / C
+    group, as a Mamba2 layer hands them to ``ops.ssd``, and ops.ssd's
+    output (the fold, each head's copy of B / C, then the kernel) is what
+    is held against the plain version; the kernel alone is timed on the
+    folded inputs, ops.ssd as a whole beside it."""
     _, nh, n = ssm_dims(cfg)
     p, bh, q = cfg.ssm_head_dim, batch * nh, SSD_CHUNK
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device)
 
-    x = (0.5 * randn(bh, seq, p)).to(dtype)
-    if strong_decay:
-        # dt·A with A = -16 (A_log = log 16, the last head) and dt in
-        # [0.5, 1.5): the upper triangle's exponents overflow to inf.
-        a = -16.0 * (0.5 + torch.rand(bh, seq, generator=gen, device=device))
+    if via_ops:
+        model_in = ((0.5 * randn(batch, seq, nh, p)).to(dtype),
+                    -torch.nn.functional.softplus(randn(batch, seq, nh)),
+                    *((0.3 * randn(batch, seq, 1, n)).to(dtype)
+                      for _ in range(2)),
+                    0.3 * randn(batch, nh, p, n) if with_s0 else None)
+        x, a, B, C, s0 = kops.fold_ssd(*model_in)
     else:
-        a = -torch.nn.functional.softplus(randn(bh, seq))
-    B, C = ((0.3 * randn(bh, seq, n)).to(dtype) for _ in range(2))
-    s0 = 0.3 * randn(bh, p, n) if with_s0 else None
+        x = (0.5 * randn(bh, seq, p)).to(dtype)
+        if strong_decay:
+            # dt·A with A = -16 (A_log = log 16, the last head) and dt in
+            # [0.5, 1.5): the upper triangle's exponents overflow to inf.
+            a = -16.0 * (0.5 + torch.rand(bh, seq, generator=gen,
+                                          device=device))
+        else:
+            a = -torch.nn.functional.softplus(randn(bh, seq))
+        B, C = ((0.3 * randn(bh, seq, n)).to(dtype) for _ in range(2))
+        s0 = 0.3 * randn(bh, p, n) if with_s0 else None
 
     def kernel():
         return ssk.ssd_scan_bh(x, a, B, C, s0=s0, chunk=q)
@@ -2316,7 +2418,15 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
     def plain():
         return kref.ssd_scan_bh_ref(x, a, B, C, s0=s0, chunk=q)
 
-    (y, sT), (want_y, want_s) = kernel(), plain()
+    def model_path():
+        return kops.ssd(*model_in[:4], init_state=model_in[4], chunk=q)
+
+    if via_ops:
+        y, sT = model_path()
+        y, sT = y.permute(0, 2, 1, 3).reshape(bh, seq, p), sT.reshape(bh, p, n)
+    else:
+        y, sT = kernel()
+    want_y, want_s = plain()
     check = errors(y, want_y, *SSD_TOL[dtype])
     state = errors(sT, want_s, *SSD_STATE_TOL)
     check.update(state_max_abs_err=state["max_abs_err"],
@@ -2351,16 +2461,29 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
         core_ms = 1e3 * flops / CUDA_CORE_FLOPS
         check.update(cuda_core_bound_ms=core_ms,
                      cuda_core_bound_fraction=core_ms / ms)
+    if via_ops:
+        # ops.ssd: the fold's copies of B / C per head are written by it
+        # and read by the kernel; its own inputs hold one group.
+        e_in = model_in[2].numel() + model_in[3].numel()
+        ops_bytes = nbytes - e * (B.numel() + C.numel() - e_in)
+        check.update(ops_ms=queued_ms(model_path, 5)[0],
+                     ops_bound_ms=bound(ops_bytes, flops,
+                                        TENSOR_PEAK_FLOPS[dtype])[0],
+                     ops_bound_bytes=ops_bytes,
+                     bc_copy_bytes=e * (B.numel() + C.numel()), groups=1)
     launches, marks_lost = kernel_launches(kernel, "ssd_")
-    out = dict(batch=batch, seq=seq, heads=nh, head_dim=p, state=n,
-               chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
-               strong_decay=strong_decay, a_min=float(a.min()), **check,
+    out = dict(arch=cfg.name, batch=batch, seq=seq, heads=nh, head_dim=p,
+               state=n, chunk=q, dtype=str(dtype)[6:], with_s0=with_s0,
+               strong_decay=strong_decay, via_ops=via_ops,
+               a_min=float(a.min()), **check,
                ms=ms, ms_device_bound=device_bound,
                kernel_launches_per_call=launches,
                profile_marks_lost=marks_lost, bound_fraction=bound_ms / ms,
                plain_ms=queued_ms(plain, 2)[0], bound_ms=bound_ms,
                bound_by=bound_by, bound_bytes=nbytes, bound_flops=flops)
     del x, a, B, C, s0, y, sT, want_y, want_s
+    if via_ops:
+        del model_in
     if launches != 1:
         raise AssertionError(f"ssd_scan_bh made {launches} kernel launches "
                              f"a call, expected 1: {out}")
@@ -2619,6 +2742,64 @@ def main() -> int:
         ssm_cfg, device, "generate_mamba", GEN_SSM_BATCH, GEN_SSM_PROMPT,
         GEN_SSM_PROMPT + GEN_STEPS, {"ssd_scan": ssm_cfg.n_layers})
 
+    # --- the last two families: whisper-base (encoder-decoder),
+    # llama-3.2-vision (cross-attention layers) and jamba (the hybrid)
+    wh_cfg = get_config(WHISPER_ARCH)
+    vis_cfg = dataclasses.replace(get_config(VISION_ARCH),
+                                  n_layers=VISION_LAYERS)
+    hy_cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=8,
+                                 d_ff=HYBRID_D_FF)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    # attention at hd 128, G 8 (llama-vision's and jamba's layers, no
+    # window, no softcap) and at hd 64, G 1 (whisper's decoder)
+    fam = [attn_case(c, s, None, torch.bfloat16, device, gen,
+                     batch=GEN_BATCH)
+           for c, s in ((hy_cfg, HYBRID_PROMPT), (vis_cfg, VISION_PROMPT),
+                        (wh_cfg, GEN_WHISPER_PROMPT))]
+    torch.cuda.empty_cache()
+    fam += [attn_case(c, s, None, torch.float32, device, gen)
+            for c, s in ((hy_cfg, HYBRID_PROMPT),
+                         (wh_cfg, GEN_WHISPER_PROMPT))]
+    check_cases("attn_kernel_vs_plain", fam)
+    attn += fam
+    # decode at the generate phases' first and last positions
+    fam = [decode_case(c, p, None, dt, device, gen, cache=prompt + GEN_STEPS)
+           for c, prompt in ((wh_cfg, GEN_WHISPER_PROMPT),
+                             (vis_cfg, VISION_PROMPT),
+                             (hy_cfg, HYBRID_PROMPT))
+           for p in (prompt, prompt + GEN_STEPS - 1) for dt in dtypes]
+    check_cases("decode_kernel_vs_plain", fam)
+    dec += fam
+    # the SSD scan at jamba's widths through ops.ssd (one B / C group,
+    # copied to each of the 128 heads)
+    fam = [ssd_case(hy_cfg, b, HYBRID_PROMPT, dt, device, gen, with_s0=s0,
+                    via_ops=True)
+           for b, dt, s0 in ((GEN_BATCH, torch.bfloat16, False),
+                             (1, torch.float32, True))]
+    check_cases("ssd_kernel_vs_plain", fam)
+    ssd += fam
+    torch.cuda.empty_cache()
+    serve_wh = serve_phase(wh_cfg, device, "serve_whisper", WHISPER_PROMPTS,
+                           WHISPER_CONTEXT, "flash_attention")
+    generate_wh = generate_phase(
+        wh_cfg, device, "generate_whisper", GEN_BATCH, GEN_WHISPER_PROMPT,
+        WHISPER_CONTEXT, {"flash_attention": wh_cfg.n_layers,
+                          "flash_decode": wh_cfg.n_layers * GEN_STEPS})
+    n_self = sum(sp.mixer == ATTN for sp in vis_cfg.layer_pattern()) \
+        * vis_cfg.n_periods
+    generate_vis = generate_phase(
+        vis_cfg, device, "generate_vision", GEN_BATCH, VISION_PROMPT,
+        VISION_PROMPT + GEN_STEPS,
+        {"flash_attention": n_self, "flash_decode": n_self * GEN_STEPS},
+        reduced="n_layers 100 -> 10 (2 of 20 periods: 8 self-attention, "
+                "2 cross-attention layers)")
+    generate_hy = generate_phase(
+        hy_cfg, device, "generate_hybrid", GEN_BATCH, HYBRID_PROMPT,
+        HYBRID_PROMPT + GEN_STEPS,
+        {"flash_attention": 1, "ssd_scan": 7, "flash_decode": GEN_STEPS},
+        reduced="n_layers 72 -> 8 (one period: 1 attention, 7 Mamba2 "
+                "layers), d_ff 24576 -> 3072")
+
     # --- the chaos tier (fault lanes on the plain step) and the live tier;
     # last, so that its profile of one plain step comes after the model
     # phases' profiler checks
@@ -2712,7 +2893,35 @@ def main() -> int:
              dict(arch=MOE_ARCH, seq=GEN_PROMPT, dtype="bfloat16",
                   batch=GEN_BATCH), "_moe"),
             ("flash_decode", dec, generate_moe["launches"]["flash_decode"],
-             dict(arch=MOE_ARCH, pos=4616, dtype="bfloat16"), "_moe")):
+             dict(arch=MOE_ARCH, pos=4616, dtype="bfloat16"), "_moe"),
+            # the last two families: whisper's decoder (hd 64, G 1)
+            # float32 on serve_whisper (b 1, its longest prompt, 416),
+            # bfloat16 on generate_whisper (batch 8, S 416, decode over
+            # the 448 context); llama-vision's and jamba's layers (hd 128,
+            # G 8) on their generate phases (batch 8, S 1024 / 2048); a
+            # decode row is the mean of the phase's first and last step
+            ("flash_attention", attn,
+             serve_wh["launches"]["flash_attention"],
+             dict(arch=WHISPER_ARCH, seq=GEN_WHISPER_PROMPT,
+                  dtype="float32", batch=1), "_whisper"),
+            ("flash_attention", attn,
+             generate_wh["launches"]["flash_attention"],
+             dict(arch=WHISPER_ARCH, seq=GEN_WHISPER_PROMPT,
+                  dtype="bfloat16", batch=GEN_BATCH), "_whisper"),
+            ("flash_decode", dec, generate_wh["launches"]["flash_decode"],
+             dict(arch=WHISPER_ARCH, dtype="bfloat16"), "_whisper"),
+            ("flash_attention", attn,
+             generate_vis["launches"]["flash_attention"],
+             dict(arch=VISION_ARCH, seq=VISION_PROMPT, dtype="bfloat16",
+                  batch=GEN_BATCH), "_vision"),
+            ("flash_decode", dec, generate_vis["launches"]["flash_decode"],
+             dict(arch=VISION_ARCH, dtype="bfloat16"), "_vision"),
+            ("flash_attention", attn,
+             generate_hy["launches"]["flash_attention"],
+             dict(arch=HYBRID_ARCH, seq=HYBRID_PROMPT, dtype="bfloat16",
+                  batch=GEN_BATCH), "_jamba"),
+            ("flash_decode", dec, generate_hy["launches"]["flash_decode"],
+             dict(arch=HYBRID_ARCH, dtype="bfloat16"), "_jamba")):
         sel = [c for c in cases if all(c[k] == v for k, v in match.items())]
         same_dtype = [c for c in cases if c["dtype"] == match["dtype"]]
         row = {
@@ -2755,7 +2964,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/ssd_scan.py:79",
             "launches": launches_on_path,
             "max_abs_err": max(c["max_abs_err"] for c in ssd
-                               if c["dtype"] == match["dtype"]),
+                               if c["dtype"] == match["dtype"]
+                               and c["arch"] == SSM_ARCH),
             "ms": mean_of(sel, "ms"),
             "plain_ms": mean_of(sel, "plain_ms"),
             "bound_ms": mean_of(sel, "bound_ms"),
@@ -2768,6 +2978,30 @@ def main() -> int:
         if match["dtype"] == "float32":
             row["cuda_core_bound_ms"] = mean_of(sel, "cuda_core_bound_ms")
         line["kernels"].append(row)
+    # ssd_scan at jamba's widths (128 heads of P 128, one B / C group) on
+    # generate_hybrid's prefill (batch 8, L 2048): the kernel alone, and
+    # ops.ssd with its per-head copies of B / C beside it
+    sel = [c for c in ssd if c["arch"] == HYBRID_ARCH
+           and c["dtype"] == "bfloat16"]
+    line["kernels"].append({
+        "name": "ssd_scan_bf16_jamba",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:79",
+        "launches": generate_hy["launches"]["ssd_scan"],
+        "max_abs_err": sel[0]["max_abs_err"],
+        "ms": sel[0]["ms"],
+        "plain_ms": sel[0]["plain_ms"],
+        "bound_ms": sel[0]["bound_ms"],
+        "bound_by": sel[0]["bound_by"],
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "kernel_launches_per_call": sel[0]["kernel_launches_per_call"],
+        "chain_ms": sel[0]["chain_ms"],
+        "ops_ms": sel[0]["ops_ms"],
+        "ops_bound_ms": sel[0]["ops_bound_ms"],
+        "bc_copy_bytes": sel[0]["bc_copy_bytes"],
+    })
     # jaxsim: the §6.6.4 study's one launch (12 lanes), its device ms and
     # bound, the measured cost of a substep beside the two modelled
     # floors of the design (chain_bound_ms, table_bound_ms); the plain

@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention import flash_attention_bkv
 from repro_torch.kernels.flash_decode import flash_decode_bkv
 from repro_torch.kernels.ssd_scan import ssd_scan_bh
 
-__all__ = ["flash_attention", "flash_decode", "ssd"]
+__all__ = ["flash_attention", "flash_decode", "fold_ssd", "ssd"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -63,12 +63,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, hd)
 
 
-def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-        *, init_state: Optional[torch.Tensor] = None,
-        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Model layout: x (b, l, h, p); a (b, l, h); B/C (b, l, g, n);
-    init_state (b, h, p, n). Returns (y (b, l, h, p), state (b, h, p, n)
-    in float32)."""
+def fold_ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, init_state: Optional[torch.Tensor] = None):
+    """The model layout folded into the SSD kernel's: x (b, l, h, p), a
+    (b, l, h), B/C (b, l, g, n), init_state (b, h, p, n) → x (b·h, l, p),
+    a (b·h, l), B/C (b·h, l, n) (each group's copy per head), s0
+    (b·h, p, n) in float32 or None."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -80,7 +80,18 @@ def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     af = a.permute(0, 2, 1).reshape(b * h, l).contiguous()
     s0 = None if init_state is None else \
         init_state.reshape(b * h, p, n).float()
+    return xf, af, Bh, Ch, s0
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+        *, init_state: Optional[torch.Tensor] = None,
+        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (b, l, h, p); a (b, l, h); B/C (b, l, g, n);
+    init_state (b, h, p, n). Returns (y (b, l, h, p), state (b, h, p, n)
+    in float32)."""
+    b, l, h, p = x.shape
+    xf, af, Bh, Ch, s0 = fold_ssd(x, a, B, C, init_state)
     fn = ssd_scan_bh if x.device.type == "cuda" else ref.ssd_scan_bh_ref
     y, sT = fn(xf, af, Bh, Ch, s0=s0, chunk=chunk)
     return (y.reshape(b, h, l, p).permute(0, 2, 1, 3),
-            sT.reshape(b, h, p, n))
+            sT.reshape(b, h, p, B.shape[3]))

@@ -1,9 +1,10 @@
-"""GQA self-attention with KV-cache prefill / decode.
+"""GQA attention with KV-cache prefill / decode.
 
-The counterpart of ``repro.models.attention`` for self-attention:
-grouped-query attention (grouped einsum, no KV duplication), QKV bias
-(qwen), logit softcap and sliding-window local layers (gemma2).
-Cross-attention (vlm / audio) is not ported yet.
+The counterpart of ``repro.models.attention``: grouped-query attention
+(grouped einsum, no KV duplication), QKV bias (qwen), logit softcap and
+sliding-window local layers (gemma2), and cross-attention to frontend /
+encoder embeddings (vlm / audio: no mask, no rope), whose K/V are
+projected once at prefill into ``ck`` / ``cv`` caches.
 
 ``impl="torch"`` is the plain tensor path (the JAX package's "xla");
 ``impl="cuda"`` (its "pallas") routes prefill and the full-sequence
@@ -12,9 +13,10 @@ position through ``ops.flash_decode``. A decode step with per-row
 ``(b,)`` positions (the continuous-batching ``Replica``) takes the
 masked ``_sdpa_cached`` path under either impl, as in the reference.
 
-Caches are updated in place: ``prefill_attn`` / ``decode_attn`` write
-the new K/V rows into the tensors of the ``cache`` dict they are given
-(where the JAX functions return updated copies) and return that dict.
+Caches are updated in place: ``prefill_attn`` / ``decode_attn`` /
+``fill_cross_cache`` write the new K/V rows into the tensors of the
+``cache`` dict they are given (where the JAX functions return updated
+copies) and return that dict.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from repro_torch.models.common import KeyGen, normal_init, promote, rope
 from repro_torch.models.common import softcap as _softcap
 
 __all__ = ["NEG_INF", "attn_shapes", "init_attn", "attend_full",
-           "init_cache", "prefill_attn", "decode_attn"]
+           "attend_cross", "init_cache", "prefill_attn", "decode_attn",
+           "decode_cross_attn", "fill_cross_cache"]
 
 NEG_INF = -2.0e38
 
@@ -166,6 +169,14 @@ def attend_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, local: bool,
     return _out_proj(out, p)
 
 
+def attend_cross(p: Dict, x: torch.Tensor, src: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Cross-attention to frontend / encoder embeddings ``src`` (b, F, d):
+    no mask, no rope."""
+    q, k, v = _project_qkv(p, x, src, cfg, None, None, use_rope=False)
+    return _out_proj(_sdpa(q, k, v, cfg, mask=None), p)
+
+
 # ------------------------------------------------------------------ caching
 #
 # Cache layout is (batch, kv_heads, seq, head_dim), decode-native: the
@@ -174,13 +185,16 @@ def attend_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, local: bool,
 # filling.
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Per-attention-layer cache template (used stacked over periods)."""
+               cross_len: int = 0, dtype=torch.bfloat16,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Per-attention-layer cache template (used stacked over periods);
+    ``cross_len`` adds the cross-attention K/V ``ck`` / ``cv``."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    return {"k": torch.zeros(batch, kv, max_len, hd, dtype=dtype,
-                             device=device),
-            "v": torch.zeros(batch, kv, max_len, hd, dtype=dtype,
-                             device=device)}
+    lengths = {"k": max_len, "v": max_len}
+    if cross_len:
+        lengths.update(ck=cross_len, cv=cross_len)
+    return {name: torch.zeros(batch, kv, t, hd, dtype=dtype, device=device)
+            for name, t in lengths.items()}
 
 
 def _sdpa_cached(q: torch.Tensor, k_cache: torch.Tensor,
@@ -272,3 +286,28 @@ def decode_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
         mask = valid[:, None, None, None, :]         # (b,kv,g,1,t)
     out = _sdpa_cached(q, cache["k"], cache["v"], cfg, mask)
     return _out_proj(out, p), cache
+
+
+def decode_cross_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+                      cache: Dict) -> torch.Tensor:
+    """Cross-attention during decode: K/V read from the ``ck`` / ``cv``
+    cache that ``fill_cross_cache`` wrote at prefill."""
+    q = torch.einsum("bsd,dhk->bshk", *promote(x, p["wq"]))
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return _out_proj(_sdpa_cached(q, cache["ck"], cache["cv"], cfg,
+                                  mask=None), p)
+
+
+def fill_cross_cache(p: Dict, src: torch.Tensor, cfg: ArchConfig,
+                     cache: Dict) -> Dict:
+    """Project ``src`` (b, F, d) to K/V and write them, in the cache's
+    dtype and the decode-native layout, over ``cache["ck"]`` /
+    ``cache["cv"]`` (in place)."""
+    k = torch.einsum("btd,dmk->btmk", *promote(src, p["wk"]))
+    v = torch.einsum("btd,dmk->btmk", *promote(src, p["wv"]))
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    cache["ck"].copy_(k.permute(0, 2, 1, 3))
+    cache["cv"].copy_(v.permute(0, 2, 1, 3))
+    return cache

@@ -2,7 +2,7 @@
 
 The counterparts of ``repro.models.common``. The JAX module's sharding
 helpers (``AxisSizes``, ``shard``) have no counterpart: the port runs a
-model on one card (the device mesh is ROADMAP A12).
+model on one card (the device mesh is ROADMAP A3).
 """
 
 from __future__ import annotations

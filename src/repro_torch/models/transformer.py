@@ -1,32 +1,47 @@
-"""Decoder LM assembly: the counterpart of ``repro.models.transformer``
-for dense self-attention models (gemma2, smollm, qwen), Mixture-of-Experts
-models (granite-moe, grok-1) and Mamba2 SSM models (mamba2).
+"""Model assembly: the counterpart of ``repro.models.transformer`` for
+every architecture family of the configs: dense self-attention models
+(gemma2, smollm, qwen), Mixture-of-Experts models (granite-moe, grok-1),
+Mamba2 SSM models (mamba2), the hybrid attention / Mamba2 / MoE stack
+(jamba), vision-language models with cross-attention layers
+(llama-3.2-vision) and the encoder-decoder audio model (whisper).
 
 ``Model`` is an ``nn.Module`` that holds its weights with the JAX
 package's parameter tree as its state-dict names (``embed``,
-``final_norm``, ``blocks.l{i}.norm1``, ``blocks.l{i}.mix.wq``, …), each
-block parameter stacked over the ``n_periods`` repetitions of the
-config's layer pattern, so ``convert.params_from_jax`` output loads with
-``load_state_dict``. The layers run as a Python loop over periods: the
-same math as the reference's ``lax.scan``.
+``final_norm``, ``blocks.l{i}.norm1``, ``blocks.l{i}.mix.wq``,
+``blocks.l{i}.norm_cross``, ``encoder.blocks.mix.wq``,
+``encoder.norm``, ``front_norm``, …), each block parameter stacked over
+the ``n_periods`` repetitions of the config's layer pattern (the
+encoder's over its ``encoder_layers``), so ``convert.params_from_jax``
+output loads with ``load_state_dict``. The layers run as a Python loop
+over periods: the same math as the reference's ``lax.scan``.
 
 Entry points:
   * ``init(seed)``                   — random weights from an explicit
                                        generator, in place; returns self
-  * ``init_cache(batch, max_len)``   — the stacked KV caches
+  * ``init_cache(batch, max_len)``   — the stacked KV / SSM caches, and
+                                       the cross-attention ``ck`` / ``cv``
+                                       of ``frontend_len``
   * ``prefill(batch, cache)``        — fills the caches, last-token logits
   * ``decode(tokens, cache, pos)``   — one serve step
+  * ``encode(frames)``               — whisper's encoder
 
-``impl="cuda"`` runs attention through the flash-attention and
+vlm and audio models read ``batch["frontend"]`` (b, frontend_len,
+d_model), the stub frontend's patch or frame embeddings: the vlm's go
+through ``front_norm``, the audio model's through the encoder, and the
+cross-attention layers attend to the result. Without it they raise
+``ValueError``.
+
+``impl="cuda"`` runs self-attention through the flash-attention and
 flash-decode kernels and the Mamba2 scan through the SSD kernel
 (``kernels/ops``), ``impl="torch"`` through the plain tensor path;
 ``None`` picks ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU
 (``compat.resolve_backend``); ``"cuda"`` on the CPU calls the kernels'
-wrappers, which run their plain versions on CPU tensors. Caches are updated in place; Mamba caches are float32 whatever the cache
-dtype asked for, as in the reference.
+wrappers, which run their plain versions on CPU tensors.
+Cross-attention and the encoder run the plain path under either impl,
+as in the reference. Caches are updated in place; Mamba caches are
+float32 whatever the cache dtype asked for, as in the reference.
 
-Not ported yet (raise ``NotImplementedError``): the hybrid jamba stack,
-cross-attention (vlm / audio), encoders, and the training ``loss``
+Not ported yet (raises ``NotImplementedError``): the training ``loss``
 (ROADMAP, queued work of the port).
 """
 
@@ -39,8 +54,9 @@ import torch
 from torch import nn
 
 from repro_torch.compat import Device, resolve_backend, resolve_device
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE,
-                                      NONE, ArchConfig, LayerSpec)
+from repro_torch.configs.base import (ATTN, ATTN_CROSS, ATTN_LOCAL, DENSE,
+                                      MAMBA, MOE, NONE, ArchConfig,
+                                      LayerSpec)
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mlp as F
@@ -49,19 +65,8 @@ from repro_torch.models.common import KeyGen, normal_init, rms_norm, softcap
 __all__ = ["Model"]
 
 
-def _unsupported(cfg: ArchConfig, pattern) -> Optional[str]:
-    if cfg.encoder_layers:
-        return "encoder-decoder models (whisper)"
-    if cfg.family == "hybrid":
-        return "the hybrid attention / Mamba / MoE stack (jamba)"
-    for sp in pattern:
-        if sp.mixer not in (ATTN, ATTN_LOCAL, MAMBA):
-            return f"the {sp.mixer!r} mixer (cross-attention)"
-        if sp.cross:
-            return "cross-attention sublayers"
-        if sp.mlp not in (DENSE, MOE, NONE):
-            return f"the {sp.mlp!r} MLP"
-    return None
+ENCODER_SPEC = LayerSpec(ATTN, DENSE)
+FRONTEND_FAMILIES = ("vlm", "audio")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -70,11 +75,13 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class _Layer(nn.Module):
-    """One layer of the period block, its tensors stacked over periods."""
+    """One layer of the period block, its tensors stacked over ``n``
+    repetitions (the periods, or the encoder's layers)."""
 
-    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device):
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device,
+                 n: int):
         super().__init__()
-        n, d = cfg.n_periods, cfg.d_model
+        d = cfg.d_model
         self.norm1 = _param((n, d), torch.float32, device)
         if spec.mixer == MAMBA:
             mix = {name: (shape, torch.float32 if name in M.F32_PARAMS
@@ -86,6 +93,11 @@ class _Layer(nn.Module):
         self.mix = nn.ParameterDict({
             name: _param((n,) + shape, dt, device)
             for name, (shape, dt) in mix.items()})
+        if spec.cross:
+            self.norm_cross = _param((n, d), torch.float32, device)
+            self.cross = nn.ParameterDict({
+                name: _param((n,) + shape, dtype, device)
+                for name, (shape, _) in A.attn_shapes(cfg).items()})
         if spec.mlp != NONE:
             shapes = (F.moe_mlp_shapes(cfg) if spec.mlp == MOE
                       else F.dense_mlp_shapes(cfg))
@@ -116,6 +128,17 @@ def _index(tree, i: int):
     return tree[i]
 
 
+class _Encoder(nn.Module):
+    """Whisper's encoder: ``encoder_layers`` self-attention + dense MLP
+    layers stacked in ``blocks``, then ``norm``."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.blocks = _Layer(cfg, ENCODER_SPEC, dtype, device,
+                             cfg.encoder_layers)
+        self.norm = _param((cfg.d_model,), torch.float32, device)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device: Device = None,
                  impl: Optional[str] = None,
@@ -128,18 +151,16 @@ class Model(nn.Module):
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
         self.pattern = cfg.layer_pattern()
-        missing = _unsupported(cfg, self.pattern)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} is not ported yet (ROADMAP, queued "
-                f"work of the port); the port runs dense and MoE "
-                f"self-attention models and Mamba2 models")
         dev = self.device
         self.embed = _param((cfg.vocab, cfg.d_model), param_dtype, dev)
         self.final_norm = _param((cfg.d_model,), torch.float32, dev)
         self.blocks = nn.ModuleDict({
-            f"l{i}": _Layer(cfg, sp, param_dtype, dev)
+            f"l{i}": _Layer(cfg, sp, param_dtype, dev, cfg.n_periods)
             for i, sp in enumerate(self.pattern)})
+        if cfg.encoder_layers:
+            self.encoder = _Encoder(cfg, param_dtype, dev)
+        if cfg.family == "vlm":
+            self.front_norm = _param((cfg.d_model,), torch.float32, dev)
 
     def with_impl(self, impl: str) -> "Model":
         """A view of this model (the same weight tensors) that runs
@@ -154,7 +175,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":
         """Fill every weight from one ``torch.Generator`` seeded with
-        ``seed`` on the model's device, period by period, as the
+        ``seed`` on the model's device, layer by layer and period by
+        period (the decoder's blocks, then the encoder's), as the
         reference's initialisers do: truncated-normal matrices with the
         reference's standard deviations, zero norms and biases, and the
         Mamba layers' deterministic ``A_log``, ``D`` and ``dt_bias``. The
@@ -167,16 +189,21 @@ class Model(nn.Module):
         for name, t in self.named_parameters():
             if "norm" in name:
                 t.zero_()
-        for layer, sp in zip(self.blocks.values(), self.pattern):
+        layers = list(zip(self.blocks.values(), self.pattern))
+        if cfg.encoder_layers:
+            layers.append((self.encoder.blocks, ENCODER_SPEC))
+        for layer, sp in layers:
             init_mix = M.init_mamba if sp.mixer == MAMBA else A.init_attn
-            for i in range(cfg.n_periods):
-                for name, t in init_mix(kg, cfg, dt, dev).items():
-                    layer.mix[name][i].copy_(t)
-                if hasattr(layer, "mlp"):
-                    init_mlp = F.init_moe if sp.mlp == MOE \
-                        else F.init_dense_mlp
-                    for name, t in init_mlp(kg, cfg, dt, dev).items():
-                        layer.mlp[name][i].copy_(t)
+            init_mlp = F.init_moe if sp.mlp == MOE else F.init_dense_mlp
+            for i in range(layer.norm1.shape[0]):
+                parts = [(layer.mix, init_mix)]
+                if sp.cross:
+                    parts.append((layer.cross, A.init_attn))
+                if sp.mlp != NONE:
+                    parts.append((layer.mlp, init_mlp))
+                for params, init_fn in parts:
+                    for name, t in init_fn(kg, cfg, dt, dev).items():
+                        params[name][i].copy_(t)
         return self
 
     def params(self) -> Dict:
@@ -187,15 +214,22 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> Dict:
-        """Attention layers: K/V caches of ``max_len`` in ``dtype``;
-        Mamba layers: the SSM state and conv tails in float32."""
-        n = self.cfg.n_periods
+        """Self-attention layers: K/V caches of ``max_len`` in
+        ``dtype``; cross-attention (an ``ATTN_CROSS`` mixer or a
+        ``cross`` sublayer): ``ck`` / ``cv`` of ``frontend_len`` in
+        ``dtype``; Mamba layers: the SSM state and conv tails in
+        float32."""
+        cfg, n = self.cfg, self.cfg.n_periods
 
         def layer(sp):
             if sp.mixer == MAMBA:
-                return M.init_mamba_cache(self.cfg, batch, torch.float32,
-                                          "meta")
-            return A.init_cache(self.cfg, batch, max_len, dtype, "meta")
+                return M.init_mamba_cache(cfg, batch, torch.float32, "meta")
+            cross_len = cfg.frontend_len if sp.cross or \
+                sp.mixer == ATTN_CROSS else 0
+            c = A.init_cache(cfg, batch, max_len, cross_len, dtype, "meta")
+            if sp.mixer == ATTN_CROSS:
+                del c["k"], c["v"]
+            return c
 
         return {f"l{i}": {name: torch.zeros((n,) + t.shape, dtype=t.dtype,
                                             device=self.device)
@@ -219,63 +253,126 @@ class Model(nn.Module):
                               .to(x.dtype))
         return softcap(logits, self.cfg.final_softcap)
 
-    def _mixer(self, lp, spec: LayerSpec, h, mode, cache, pos):
+    def _mixer(self, lp, spec: LayerSpec, h, mode, cache, pos, src):
+        cfg = self.cfg
         if spec.mixer == MAMBA:
             if mode == "full":
-                return M.mamba_full(lp["mix"], h, self.cfg,
-                                    self.impl), cache
+                return M.mamba_full(lp["mix"], h, cfg, self.impl), cache
             if mode == "prefill":
-                return M.mamba_prefill(lp["mix"], h, self.cfg, cache,
-                                       self.impl)
-            return M.mamba_decode(lp["mix"], h, self.cfg, cache)
+                return M.mamba_prefill(lp["mix"], h, cfg, cache, self.impl)
+            return M.mamba_decode(lp["mix"], h, cfg, cache)
+        if spec.mixer == ATTN_CROSS:
+            return self._cross(lp["mix"], h, mode, cache, src), cache
         local = spec.mixer == ATTN_LOCAL
         if mode == "full":
-            return A.attend_full(lp["mix"], h, self.cfg, local,
-                                 self.impl), cache
+            return A.attend_full(lp["mix"], h, cfg, local, self.impl), cache
         if mode == "prefill":
-            return A.prefill_attn(lp["mix"], h, self.cfg, cache, local,
+            return A.prefill_attn(lp["mix"], h, cfg, cache, local,
                                   self.impl)
-        return A.decode_attn(lp["mix"], h, self.cfg, cache, pos, local,
+        return A.decode_attn(lp["mix"], h, cfg, cache, pos, local,
                              self.impl)
 
-    def _block(self, x, blk, spec_cache, mode, pos):
-        """One period block. blk / spec_cache: per-period slices."""
+    def _cross(self, p, h, mode, cache, src):
+        """Cross-attention: to ``src`` in full and prefill modes (prefill
+        also fills ``ck`` / ``cv``), to the cached K/V in decode."""
+        if mode == "decode":
+            return A.decode_cross_attn(p, h, self.cfg, cache)
+        if mode == "prefill":
+            A.fill_cross_cache(p, src, self.cfg, cache)
+        return A.attend_cross(p, h, src, self.cfg)
+
+    def _block(self, x, blk, spec_cache, mode, pos, src):
+        """One period block. blk / spec_cache: per-period slices. A layer
+        with a cross sublayer splits its cache: ``k`` / ``v`` for the
+        mixer, ``ck`` / ``cv`` for the cross-attention."""
         for i, sp in enumerate(self.pattern):
             lp = blk[f"l{i}"]
             lc = spec_cache[f"l{i}"] if spec_cache is not None else None
+            mix_c, cross_c = lc, lc
+            if sp.cross and lc is not None:
+                mix_c = {k: lc[k] for k in ("k", "v")}
+                cross_c = {k: lc[k] for k in ("ck", "cv")}
             h = rms_norm(x, lp["norm1"])
-            out, _ = self._mixer(lp, sp, h, mode, lc, pos)
+            out, _ = self._mixer(lp, sp, h, mode, mix_c, pos, src)
             x = x + out
+            if sp.cross:
+                hc = rms_norm(x, lp["norm_cross"])
+                x = x + self._cross(lp["cross"], hc, mode, cross_c, src)
             if sp.mlp != NONE:
                 h2 = rms_norm(x, lp["norm2"])
                 x = x + (F.moe_mlp(lp["mlp"], h2, self.cfg)
                          if sp.mlp == MOE else F.dense_mlp(lp["mlp"], h2))
         return x
 
-    def _run_blocks(self, params, x, mode, cache=None, pos=None):
+    def _run_blocks(self, params, x, mode, cache=None, pos=None, src=None):
         for i in range(self.cfg.n_periods):
             cb = _index(cache, i) if cache is not None else None
-            x = self._block(x, _index(params["blocks"], i), cb, mode, pos)
+            x = self._block(x, _index(params["blocks"], i), cb, mode, pos,
+                            src)
         return x, cache
+
+    def _encode(self, params, frames):
+        x = torch.as_tensor(frames, device=self.device).to(
+            self.compute_dtype)
+        enc = params["encoder"]
+        for i in range(self.cfg.encoder_layers):
+            blk = _index(enc["blocks"], i)
+            h = rms_norm(x, blk["norm1"])
+            x = x + A.attend_full(blk["mix"], h, self.cfg, local=False,
+                                  impl="torch", causal=False)
+            h2 = rms_norm(x, blk["norm2"])
+            x = x + F.dense_mlp(blk["mlp"], h2)
+        return rms_norm(x, enc["norm"])
+
+    def _frontend(self, params, batch):
+        """The cross-attention source of a vlm / audio model: the
+        frontend's embeddings through ``front_norm`` (vlm) or the encoder
+        (audio); None for the other families."""
+        cfg = self.cfg
+        if cfg.family not in FRONTEND_FAMILIES:
+            return None
+        front = batch.get("frontend")
+        if front is None:
+            raise ValueError(
+                f"{cfg.name}: a {cfg.family} model needs batch[\"frontend\"]"
+                f", the (b, {cfg.frontend_len}, {cfg.d_model}) frontend "
+                f"embeddings")
+        if cfg.family == "audio":
+            return self._encode(params, front)
+        front = torch.as_tensor(front, device=self.device)
+        return rms_norm(front.to(self.compute_dtype), params["front_norm"])
 
     # -------------------------------------------------------- entry points
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits (b, s, vocab), no cache."""
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over stub frame embeddings (b, F, d): the
+        bidirectional self-attention layers (plain path) and the final
+        norm, in the compute dtype."""
+        return self._encode(self.params(), frames)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor,
+                frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence logits (b, s, vocab), no cache; ``frontend`` as
+        ``batch["frontend"]`` of ``prefill``."""
         params = self.params()
+        src = self._frontend(params, {"frontend": frontend})
         x, _ = self._run_blocks(params, self._embed(params,
                                                     self._tokens(tokens)),
-                                "full")
+                                "full", src=src)
         return self._logits(params, x)
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache: Dict):
         """``batch["tokens"]`` (b, s) → last-token logits (b, 1, vocab)
-        and the cache (rows [0, s) written in place)."""
+        and the cache (rows [0, s) written in place; ``ck`` / ``cv`` from
+        ``batch["frontend"]``, which vlm and audio models need)."""
         params = self.params()
+        src = self._frontend(params, batch)
         x = self._embed(params, self._tokens(batch["tokens"]))
-        x, cache = self._run_blocks(params, x, "prefill", cache=cache)
+        x, cache = self._run_blocks(params, x, "prefill", cache=cache,
+                                    src=src)
         return self._logits(params, x[:, -1:, :]), cache
 
     @torch.no_grad()

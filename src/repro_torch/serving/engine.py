@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.compat import Device, resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import FRONTEND_FAMILIES, Model
 
 __all__ = ["Request", "SlotPool", "Replica", "VirtualReplica",
            "LeastLoadedRouter"]
@@ -99,9 +99,15 @@ class Replica(SlotPool):
         # splice it in (batch=1 prefill keeps latency bounded).
         row_cache = self.model.init_cache(1, self.max_len,
                                           dtype=self.cache_dtype())
-        tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
-        logits, row_cache = self.model.prefill({"tokens": tokens},
-                                               row_cache)
+        batch = {"tokens": torch.as_tensor(req.prompt[None, :],
+                                           device=self.device)}
+        if self.cfg.family in FRONTEND_FAMILIES:
+            # The reference's serving frontend: zero patch / frame
+            # embeddings (every cross-attention sublayer then adds 0).
+            batch["frontend"] = torch.zeros(
+                1, self.cfg.frontend_len, self.cfg.d_model,
+                dtype=torch.float32, device=self.device)
+        logits, row_cache = self.model.prefill(batch, row_cache)
         for name, layer in self.cache.items():
             for key, full in layer.items():
                 full[:, slot] = row_cache[name][key][:, 0]

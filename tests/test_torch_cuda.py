@@ -726,25 +726,31 @@ def test_softcap_that_bites_on_the_card(kernel, dtype):
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "smollm_135m",
-                                  "mamba2_130m"])
+                                  "mamba2_130m", "jamba15_large_398b",
+                                  "whisper_base", "llama32_vision_90b"])
 def test_model_kernel_path_equals_plain_path_on_the_card(arch):
     """Reduced model: prefill and a scalar-position decode through the
     kernels (impl="cuda": both attention kernels, or the SSD scan)
     against the plain path (impl="torch"), float32 (the models' own
     tolerance, atol 5e-5 / rtol 5e-4, widened to 1e-4 for the kernels'
-    summation order)."""
+    summation order); vlm and audio models on a seeded random
+    frontend."""
     from repro_torch.configs.base import get_config, reduced_config
     from repro_torch.models.transformer import Model
     dev = _cuda_or_skip()
     cfg = reduced_config(get_config(arch))
     model = Model(cfg, dev, compute_dtype=torch.float32).init(0)
     assert model.impl == "cuda"
-    toks = torch.randint(0, cfg.vocab, (2, 81), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 81), device=dev, generator=gen)
+    batch = {"tokens": toks[:, :80]}
+    if cfg.family in ("vlm", "audio"):
+        batch["frontend"] = torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                        device=dev, generator=gen)
     outs = []
     for m in (model, model.with_impl("torch")):
         cache = m.init_cache(2, 96, dtype=torch.float32)
-        lg0, cache = m.prefill({"tokens": toks[:, :80]}, cache)
+        lg0, cache = m.prefill(batch, cache)
         lg1, _ = m.decode(toks[:, 80:], cache,
                           torch.tensor(80, device=dev))
         outs.append((lg0, lg1))

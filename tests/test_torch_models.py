@@ -26,7 +26,7 @@ from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced_config as ref_reduced_config
 from repro.launch.mesh import make_local_mesh
 from repro.models.transformer import Model as RefModel
-from repro_torch.configs.base import get_config, reduced_config
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced_config
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import Model
 
@@ -172,11 +172,20 @@ def test_random_init_is_seeded_and_scaled():
     assert abs(float(wq.std()) / std - 0.88) < 0.1   # truncated at ±2σ
 
 
-@pytest.mark.parametrize("arch", ["whisper_base", "llama32_vision_90b",
-                                  "jamba15_large_398b"])
-def test_unsupported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(reduced_config(get_config(arch)), "cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_constructs(arch):
+    """Every architecture of the configs builds on the CPU, and its
+    state dict holds the flattened JAX parameter tree: the same names,
+    shapes and dtypes (the reference's tree from ``jax.eval_shape``)."""
+    cfg = reduced_config(get_config(arch), vocab=256)
+    ref_cfg = ref_reduced_config(ref_get_config(arch), vocab=256)
+    model = Model(cfg, "cpu").init(0)
+    tree = jax.eval_shape(RefModel(ref_cfg, make_local_mesh()).init, 0)
+    want = {jax.tree_util.keystr(path, simple=True, separator="."):
+            (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert {name: (tuple(t.shape), str(t.dtype)[6:])
+            for name, t in model.state_dict().items()} == want
 
 
 def test_impl_resolution_and_device():

@@ -209,6 +209,36 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    faults benchmark's serving chaos lane (MTBF 2 h,
                    max_queue 64): requests completed, shed, grant
                    retries; host walls
+  train_full       training on the card (repro_torch.train: the plain
+                   path under autograd, as the reference trains its XLA
+                   path; no kernel launches): gemma2-2b at full width and
+                   depth (2.61 B params), float32, AdamW, TrainJobConfig's
+                   defaults (batch 8, seq_len 128, lr 3e-4), 12 steps, no
+                   checkpoint directory; the same initial weights and the
+                   step-0 batch first evaluated in float64 (loss and grad
+                   norm), the float32 step 0 held to them (rtol 1e-4 /
+                   1e-3), the trainer's weights equal to the float64
+                   model's; every loss finite and the last four steps'
+                   mean below the first four's; step seconds, tokens/s,
+                   peak memory, model TFLOP/s and a profiled step's busy
+                   share and top device ops
+  train_reduced    each family's reduced config (smollm, gemma2,
+                   granite-moe, mamba2, jamba, llama-vision, whisper; the
+                   vlm / audio with SyntheticLM's frontend): Model.loss
+                   and every gradient on the card against the CPU's from
+                   one seed (loss rtol 1e-5, each gradient leaf within
+                   5e-4 of its largest magnitude: the CPU tests' limits
+                   against the JAX package)
+  train_resume     reduced smollm: 20 steps uninterrupted; a job killed
+                   after step 13 with its checkpoints past step 10 lost;
+                   a new job that restores at 10 and finishes: its losses
+                   and weights equal the uninterrupted run's bit for bit;
+                   preempt at step 8, resume to 20
+  live_train       LiveCloud(capacity=8, mesh=card) with a live training
+                   job (reduced smollm, 6 chips, 20 steps): five steps, a
+                   WS spike to 5 preempts it through a checkpoint, the
+                   spike recedes, a lease tick, run to completion; the
+                   decision ledger equal to the same run's on the CPU
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba, jaxsim,
                    serve_moe, generate_moe, serve_whisper and the three
@@ -238,8 +268,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
@@ -252,7 +284,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs.base import ATTN, MOE, get_config  # noqa: E402
+from repro_torch.configs.base import (ATTN, MOE, get_config,  # noqa: E402
+                                      reduced_config)
 from repro_torch.core import jaxsim as jaxsimlib  # noqa: E402
 from repro_torch.core.jobs import Job  # noqa: E402
 from repro_torch.core.profiles import scale_profile  # noqa: E402
@@ -290,6 +323,8 @@ from repro_torch.sim.scan import FBGrid  # noqa: E402
 from repro_torch.sim.sweep import (ScanOptions, SweepPoint,  # noqa: E402
                                    _build, _pack_rounds, paper_grid,
                                    run_sweep_workloads)
+from repro_torch.train.data import make_source  # noqa: E402
+from repro_torch.train.trainer import TrainJob, TrainJobConfig  # noqa: E402
 
 DAY = 24 * 3600.0
 # Tolerance of the three order-dependent time integrals (turn_sum,
@@ -2004,7 +2039,9 @@ def breakdown(fn, sum_of=None, tries=5):
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us:
-            per_kernel[ev.key[:80]] = us / 1e3
+            # kernels whose names share the first 80 characters add up
+            key = ev.key[:80]
+            per_kernel[key] = per_kernel.get(key, 0.0) + us / 1e3
     device_ms = sum(per_kernel.values()) or None
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
@@ -2490,6 +2527,318 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
     return out
 
 
+# ------------------------------------------------------ training on the card
+#
+# The trainer (repro_torch.train) runs the plain path under autograd, as
+# the reference's trainer runs its XLA path: no kernel launches, which the
+# phases check. gemma2-2b at full width and depth (26 layers, d 2304,
+# vocab 256000), float32, AdamW, TrainJobConfig's defaults (batch 8,
+# seq_len 128, lr 3e-4), no checkpoint directory (a full-width checkpoint
+# is 42 GB of disk). TF32 is off (set before the serving phases), so the
+# float32 products are float32.
+
+TRAIN_STEPS = 12
+# float32 step 0 against a float64 evaluation of the same weights and batch
+TRAIN_F64_LOSS_RTOL = 1e-4
+TRAIN_F64_GNORM_RTOL = 1e-3
+TRAIN_REDUCED_ARCHS = ("smollm_135m", "gemma2_2b", "granite_moe_3b",
+                       "mamba2_130m", "jamba15_large_398b",
+                       "llama32_vision_90b", "whisper_base")
+# the card's loss and gradients against the CPU's (the CPU tests' limits
+# against the JAX package): loss rtol, and each gradient leaf within this
+# share of its largest magnitude
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 5e-4
+
+
+def no_kernel_launched(phase):
+    if any(read_counts().values()):
+        raise AssertionError(f"{phase}: training launched a kernel: "
+                             f"{read_counts()}")
+
+
+def train_flops(model, tokens):
+    """Model FLOPs of one training step: 6 per parameter and token
+    (forward and backward; the tied embedding counts once, for the
+    logits' product) plus 2 per block parameter and token for the remat
+    forward. Attention's score products are left out (0.2 % at seq_len
+    128)."""
+    n = sum(p.numel() for p in model.parameters())
+    blocks = sum(p.numel() for p in model.blocks.parameters())
+    return 6 * n * tokens + 2 * blocks * tokens
+
+
+def step_split(job, step):
+    """One call of ``step`` (a training step of ``job``) split by host
+    clock into the loss's forward, the optimizer's update (each with a
+    synchronize on both sides) and the rest: the backward (with the
+    remat forward) and the gradient norm."""
+    spent = {"forward_s": 0.0, "update_s": 0.0}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    optimizer = job.optimizer
+    job.model.loss = timed(job.model.loss, "forward_s")
+    job.optimizer = dataclasses.replace(
+        optimizer, update=timed(optimizer.update, "update_s"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del job.model.loss
+        job.optimizer = optimizer
+    return dict(wall_s=wall, **spent,
+                backward_s=wall - sum(spent.values()))
+
+
+def train_full_phase(device, smi):
+    cfg = get_config(LM_ARCH)
+    jc = TrainJobConfig(arch=LM_ARCH, steps=TRAIN_STEPS, seed=LM_SEED)
+    batch0 = make_source(cfg, jc.batch, jc.seq_len,
+                         seed=jc.seed).batch_at(0)
+    # The float64 evaluation: the same initial weights (Model.init draws
+    # float32 normals and casts them) and the step-0 batch, before the
+    # trainer's state exists.
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m64 = Model(cfg, device, impl="torch", compute_dtype=torch.float64,
+                param_dtype=torch.float64).init(jc.seed).double()
+    m64.requires_grad_(True)
+    loss64 = m64.loss(batch0)
+    loss64.backward()
+    gnorm64 = float(torch.sqrt(sum(torch.sum(p.grad * p.grad)
+                                   for p in m64.parameters())))
+    loss64 = float(loss64.detach())
+    for p in m64.parameters():
+        p.grad = None
+    m64.requires_grad_(False)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    f64_peak = torch.cuda.max_memory_allocated()
+    # The trainer: its initial weights equal the float64 model's, bit for
+    # bit; then the float64 model is freed.
+    job = TrainJob(cfg, jc, device)
+    job.initialize()
+    same_init = all(torch.equal(p.double(), q) for p, q in
+                    zip(job.model.parameters(), m64.parameters()))
+    del m64
+    torch.cuda.empty_cache()
+    if not same_init:
+        raise AssertionError("train_full: the trainer's initial weights "
+                             "differ from the float64 model's")
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for k in range(TRAIN_STEPS):
+        job.jc.steps = k + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched("train_full")
+    hist, gnorms = list(job.history), list(job.grad_norms)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(hist)) or \
+            not all(np.isfinite(gnorms)):
+        raise AssertionError(f"train_full: losses {hist}, grad norms "
+                             f"{gnorms}")
+    loss_rel = abs(hist[0] - loss64) / abs(loss64)
+    gnorm_rel = abs(gnorms[0] - gnorm64) / gnorm64
+    if loss_rel > TRAIN_F64_LOSS_RTOL or gnorm_rel > TRAIN_F64_GNORM_RTOL:
+        raise AssertionError(
+            f"train_full: float32 step 0 (loss {hist[0]}, grad norm "
+            f"{gnorms[0]}) against float64 (loss {loss64}, grad "
+            f"norm {gnorm64}): relative {loss_rel}, {gnorm_rel}")
+    first4, last4 = float(np.mean(hist[:4])), float(np.mean(hist[-4:]))
+    if not last4 < first4:
+        raise AssertionError(f"train_full: the loss did not fall: {hist}")
+    tokens = jc.batch * jc.seq_len
+    median_s = float(np.median(step_s[1:]))
+    flops = train_flops(job.model, tokens)
+
+    def one_more_step():
+        job.jc.steps += 1
+        job.run()
+
+    prof = breakdown(one_more_step)
+    split = step_split(job, one_more_step)
+    emit("train_full", card=smi, arch=LM_ARCH,
+         params=sum(p.numel() for p in job.model.parameters()),
+         n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         dtype="float32", optimizer=cfg.optimizer, batch=jc.batch,
+         seq_len=jc.seq_len, lr=jc.lr, steps=TRAIN_STEPS, losses=hist,
+         grad_norms=gnorms, first4_mean=first4, last4_mean=last4,
+         f64_loss=loss64, f64_grad_norm=gnorm64, f64_loss_rel=loss_rel,
+         f64_grad_norm_rel=gnorm_rel, f64_s=f64_s,
+         f64_peak_gb=f64_peak / 1e9,
+         tol={"loss_rtol": TRAIN_F64_LOSS_RTOL,
+              "grad_norm_rtol": TRAIN_F64_GNORM_RTOL},
+         step_s=step_s, first_step_s=step_s[0], median_step_s=median_s,
+         tokens_per_s=tokens / median_s, peak_memory_gb=peak / 1e9,
+         model_tflop_per_step=flops / 1e12,
+         achieved_tflop_per_s=flops / median_s / 1e12,
+         cuda_core_bound_s=flops / CUDA_CORE_FLOPS,
+         profiled_step=prof, step_split=split,
+         kernel_launches=read_counts())
+    del job
+    torch.cuda.empty_cache()
+
+
+def loss_and_grads(model, batch):
+    model.requires_grad_(True)
+    loss = model.loss(batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()}
+
+
+def train_reduced_phase(device, smi):
+    """Each family's reduced config: Model.loss and every gradient on the
+    card against the CPU's, the same seeded weights and batch."""
+    zero_counts()
+    rows = []
+    for arch in TRAIN_REDUCED_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        cpu = Model(cfg, "cpu", impl="torch",
+                    compute_dtype=torch.float32).init(LM_SEED)
+        card = Model(cfg, device, impl="torch", compute_dtype=torch.float32)
+        card.load_state_dict(cpu.state_dict())
+        batch = make_source(cfg, 2, 32, seed=LM_SEED).batch_at(0)
+        want_loss, want = loss_and_grads(cpu, batch)
+        got_loss, got = loss_and_grads(card, batch)
+        worst = max((float((got[n] - w).abs().max())
+                     / max(float(w.abs().max()), 1e-30), n)
+                    for n, w in want.items())
+        row = dict(arch=arch, loss_cpu=want_loss, loss_card=got_loss,
+                   loss_rel=abs(got_loss - want_loss) / abs(want_loss),
+                   worst_grad_rel=worst[0], worst_grad_leaf=worst[1],
+                   grad_leaves=len(want))
+        rows.append(row)
+        if row["loss_rel"] > TRAIN_LOSS_RTOL or worst[0] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"train_reduced: the card's loss or "
+                                 f"gradients differ from the CPU's: {row}")
+    no_kernel_launched("train_reduced")
+    emit("train_reduced", card=smi, rows=rows,
+         tol={"loss_rtol": TRAIN_LOSS_RTOL,
+              "grad_share_of_leaf_max": TRAIN_GRAD_TOL})
+
+
+def train_resume_phase(device, smi, root):
+    """The reference's worker-failure case on the card (reduced smollm):
+    an uninterrupted 20-step run; a job killed after step 13 whose
+    checkpoints past step 10 are lost; a new job that restores at 10 and
+    finishes with the uninterrupted run's losses, bit for bit. Then
+    preempt at step 8 and resume to 20."""
+    cfg = reduced_config(get_config("smollm_135m"))
+    mk = lambda d, steps, every=10: TrainJobConfig(
+        arch="smollm_135m", steps=steps, batch=4, seq_len=32, lr=1e-3,
+        checkpoint_dir=str(root / d), checkpoint_every=every)
+    zero_counts()
+    t0 = time.perf_counter()
+    ref = TrainJob(cfg, mk("ref", 20), device)
+    ref.run()
+    a = TrainJob(cfg, mk("worker", 13), device)
+    a.run()
+    for s in a.ckpt.all_steps():
+        if s > 10:
+            shutil.rmtree(root / "worker" / f"step_{s}")
+    del a
+    b = TrainJob(cfg, mk("worker", 20), device)
+    b.initialize()
+    restored_at = b.step
+    result = b.run()
+    wall_s = time.perf_counter() - t0
+    diff = [x - y for x, y in zip(b.history, ref.history[10:])]
+    if restored_at != 10 or not result["completed"] or \
+            b.history != ref.history[10:20]:
+        raise AssertionError(f"train_resume: restored at {restored_at}, "
+                             f"resumed losses {b.history} vs "
+                             f"{ref.history[10:20]}")
+    same_params = all(torch.equal(p, q) for p, q in
+                      zip(ref.model.parameters(), b.model.parameters()))
+    if not same_params:
+        raise AssertionError("train_resume: the resumed weights differ")
+    # preempt → checkpoint → a new job resumes at the step it stopped
+    p = TrainJob(cfg, mk("preempt", 8, every=5), device)
+    p.run()
+    p.checkpoint(block=True)
+    q = TrainJob(cfg, mk("preempt", 20, every=5), device)
+    q.initialize()
+    resumed_at = q.step
+    q.run()
+    if resumed_at != 8 or q.step != 20:
+        raise AssertionError(f"train_resume: preempted at 8, resumed at "
+                             f"{resumed_at}, ended at {q.step}")
+    no_kernel_launched("train_resume")
+    emit("train_resume", card=smi, arch="smollm_135m (reduced)",
+         restored_at=restored_at, losses_equal_bit_for_bit=True,
+         loss_diffs=diff, weights_equal=same_params,
+         uninterrupted=ref.history, resumed=b.history,
+         preempt_resumed_at=resumed_at, preempt_final_step=q.step,
+         wall_s=wall_s)
+
+
+def live_preempt_and_resume(cloud, root):
+    """tests/test_serving_and_bridge.py's live scenario (a reduced smollm
+    TrainJob of 20 steps on 6 of 8 chips, five steps, a WS spike to 5
+    that preempts it through a checkpoint, the spike receding, a lease
+    tick, then quanta of five steps to completion); returns the payload
+    and whether the preempt wrote a checkpoint."""
+    cloud.submit_training(jid=1, arch="smollm_135m", chips=6, steps=20)
+    cloud.run_quantum(steps=5)
+    payload = cloud._live[1].payload
+    cloud.preempt_for_ws(5)
+    preempted = 1 not in cloud.pbj.running
+    wrote = any((root / "job1").rglob("*"))
+    at_preempt = payload.step
+    cloud.set_ws_demand(1)
+    cloud.lease_tick()
+    for _ in range(6):
+        if cloud.run_quantum(steps=5):
+            break
+    return payload, dict(preempted=preempted, checkpoint_written=wrote,
+                         step_at_preempt=at_preempt, final_step=payload.step)
+
+
+def live_train_phase(device, smi, root):
+    """LiveCloud(capacity=8, mesh=device) with a live training job,
+    preempted and resumed; its decision ledger equal to the same run's
+    on the CPU, entry for entry."""
+    zero_counts()
+    t0 = time.perf_counter()
+    card = LiveCloud(capacity=8, mesh=device,
+                     checkpoint_root=str(root / "card"))
+    payload, card_run = live_preempt_and_resume(card, root / "card")
+    card_s = time.perf_counter() - t0
+    no_kernel_launched("live_train")
+    cpu = LiveCloud(capacity=8, mesh="cpu",
+                    checkpoint_root=str(root / "cpu"))
+    cpu_payload, cpu_run = live_preempt_and_resume(cpu, root / "cpu")
+    ledger = [dataclasses.astuple(e) for e in card.ledger.entries]
+    same = ledger == [dataclasses.astuple(e) for e in cpu.ledger.entries]
+    if not (card_run["preempted"] and card_run["checkpoint_written"]
+            and card_run["final_step"] == 20 and same
+            and payload.device.type == "cuda"):
+        raise AssertionError(f"live_train: {card_run}, ledger equal to the "
+                             f"CPU's: {same}")
+    emit("live_train", card=smi, **card_run, ledger_entries=len(ledger),
+         ledger_equal_cpu=same, kills=card.ledger.kills(),
+         losses=payload.history, cpu_losses=cpu_payload.history,
+         host_wall_s=card_s)
+
+
 def mean_of(cases, key):
     return sum(c[key] for c in cases) / len(cases)
 
@@ -2812,6 +3161,17 @@ def main() -> int:
     live_phase(device, smi)
     if any(read_counts().values()):
         raise AssertionError(f"the live tier launched: {read_counts()}")
+
+    # --- training on the card: the plain path under autograd (no kernel
+    # launch), gemma2-2b at full width and depth, each family's reduced
+    # config against the CPU, resume after a worker failure, and a live
+    # training job preempted and resumed on the LiveCloud
+    torch.cuda.empty_cache()
+    train_full_phase(device, smi)
+    train_reduced_phase(device, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_resume_phase(device, smi, Path(tmp))
+        live_train_phase(device, smi, Path(tmp))
 
     # --- the kernel table line
     # round_step: times and bounds at the main path's shapes, the float32

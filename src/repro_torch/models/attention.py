@@ -27,7 +27,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import KeyGen, normal_init, promote, rope
+from repro_torch.models.common import (KeyGen, normal_init, promote,
+                                       rope, upcast)
 from repro_torch.models.common import softcap as _softcap
 
 __all__ = ["NEG_INF", "attn_shapes", "init_attn", "attend_full",
@@ -93,7 +94,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b, s, kv, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
     scores = _masked(_softcap(scores, cfg.attn_softcap), mask)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores.to(upcast(scores.dtype)),
+                          dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, hd)
 
@@ -212,7 +214,8 @@ def _sdpa_cached(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.einsum("bkgsd,bktd->bkgst", qg,
                           k_cache.to(q.dtype)) / math.sqrt(hd)
     scores = _masked(_softcap(scores, cfg.attn_softcap), mask)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores.to(upcast(scores.dtype)),
+                          dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v_cache.to(q.dtype))
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
 

@@ -1,8 +1,14 @@
-"""Shared model utilities: norms, RoPE, softcap and initialisation.
+"""Shared model utilities: norms, RoPE, softcap, the training loss and
+initialisation.
 
 The counterparts of ``repro.models.common``. The JAX module's sharding
 helpers (``AxisSizes``, ``shard``) have no counterpart: the port runs a
 model on one card (the device mesh is ROADMAP A3).
+
+Where the reference computes in float32 (norms, softcap, RoPE's angles,
+the loss), the port computes in ``upcast(dtype)``: float32 for bfloat16
+and float32 tensors, as there, and float64 for a float64 model, so that a
+float64 evaluation of the same weights is float64 throughout.
 """
 
 from __future__ import annotations
@@ -12,7 +18,13 @@ from typing import Optional, Sequence, Union
 import torch
 
 __all__ = ["rms_norm", "rms_norm_gated", "rope", "softcap", "normal_init",
-           "KeyGen", "promote"]
+           "KeyGen", "promote", "upcast", "cross_entropy_loss"]
+
+
+def upcast(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the reference's float32 steps run in for ``dtype``:
+    float32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def promote(*xs: torch.Tensor):
@@ -29,9 +41,9 @@ def promote(*xs: torch.Tensor):
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = x.to(upcast(dtype))
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dtype)
+    return (x * (1.0 + w.to(x.dtype))).to(dtype)
 
 
 def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
@@ -50,9 +62,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x's seq dim."""
     head_dim = x.shape[-1]
     half = head_dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    angles = positions[..., None].float() * freqs     # (..., seq, half)
+    ft = upcast(x.dtype)
+    freqs = theta ** (-torch.arange(0, half, dtype=ft, device=x.device)
+                      / half)
+    angles = positions[..., None].to(ft) * freqs      # (..., seq, half)
     angles = angles[..., None, :]                      # head axis
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]
@@ -89,4 +102,13 @@ def normal_init(gen: torch.Generator, shape: Sequence[int], stddev: float,
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
-    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+    return (cap * torch.tanh(x.to(upcast(x.dtype)) / cap)).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), labels (...) integer."""
+    logits = logits.to(upcast(logits.dtype))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -24,6 +24,7 @@ Entry points:
   * ``prefill(batch, cache)``        — fills the caches, last-token logits
   * ``decode(tokens, cache, pos)``   — one serve step
   * ``encode(frames)``               — whisper's encoder
+  * ``loss(batch)``                  — the training loss, differentiable
 
 vlm and audio models read ``batch["frontend"]`` (b, frontend_len,
 d_model), the stub frontend's patch or frame embeddings: the vlm's go
@@ -41,8 +42,12 @@ Cross-attention and the encoder run the plain path under either impl,
 as in the reference. Caches are updated in place; Mamba caches are
 float32 whatever the cache dtype asked for, as in the reference.
 
-Not ported yet (raises ``NotImplementedError``): the training ``loss``
-(ROADMAP, queued work of the port).
+Weights are created with ``requires_grad=False``, so serving builds no
+autograd graph; a trainer calls ``requires_grad_(True)`` on its own
+model. ``loss`` runs the ``"full"`` mode with grad enabled and, where
+``cfg.remat`` is set (the config default), recomputes each period in the
+backward pass (``torch.utils.checkpoint``), as the reference wraps each
+period in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import Device, resolve_backend, resolve_device
 from repro_torch.configs.base import (ATTN, ATTN_CROSS, ATTN_LOCAL, DENSE,
@@ -60,7 +66,8 @@ from repro_torch.configs.base import (ATTN, ATTN_CROSS, ATTN_LOCAL, DENSE,
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mlp as F
-from repro_torch.models.common import KeyGen, normal_init, rms_norm, softcap
+from repro_torch.models.common import (KeyGen, cross_entropy_loss,
+                                       normal_init, rms_norm, softcap)
 
 __all__ = ["Model"]
 
@@ -110,8 +117,13 @@ class _Layer(nn.Module):
 
 def _tree(module: nn.Module) -> Dict:
     """The module's parameters as the JAX package's nested dict."""
+    return _tree_of(dict(module.named_parameters()))
+
+
+def _tree_of(named: Dict[str, torch.Tensor]) -> Dict:
+    """``{"blocks.l0.mix.wq": t, …}`` → the nested dict."""
     out: Dict = {}
-    for name, p in module.named_parameters():
+    for name, p in named.items():
         node = out
         *path, leaf = name.split(".")
         for key in path:
@@ -126,6 +138,17 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int):
+    """The ``n`` periods of a stacked parameter tree, as views. One
+    ``unbind`` per tensor: its backward stacks the periods' gradients
+    once, where indexing each period would add a full-size gradient per
+    period."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 class _Encoder(nn.Module):
@@ -305,18 +328,24 @@ class Model(nn.Module):
         return x
 
     def _run_blocks(self, params, x, mode, cache=None, pos=None, src=None):
-        for i in range(self.cfg.n_periods):
+        remat = self.cfg.remat and mode == "full" and \
+            torch.is_grad_enabled()
+        n = self.cfg.n_periods
+        for i, blk in enumerate(_unbind(params["blocks"], n)):
             cb = _index(cache, i) if cache is not None else None
-            x = self._block(x, _index(params["blocks"], i), cb, mode, pos,
-                            src)
+            if remat:
+                x = checkpoint(self._block, x, blk, cb, mode, pos, src,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(x, blk, cb, mode, pos, src)
         return x, cache
 
     def _encode(self, params, frames):
         x = torch.as_tensor(frames, device=self.device).to(
             self.compute_dtype)
         enc = params["encoder"]
-        for i in range(self.cfg.encoder_layers):
-            blk = _index(enc["blocks"], i)
+        for blk in _unbind(enc["blocks"], self.cfg.encoder_layers):
             h = rms_norm(x, blk["norm1"])
             x = x + A.attend_full(blk["mix"], h, self.cfg, local=False,
                                   impl="torch", causal=False)
@@ -386,7 +415,19 @@ class Model(nn.Module):
                                     pos=pos)
         return self._logits(params, x), cache
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Model.loss: training is not ported yet (ROADMAP, queued work "
-            "of the port: train/)")
+    def loss(self, batch: Dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both (b, s); vlm / audio models also read
+        ``batch["frontend"]``): the reference's ``loss``. float32 weights
+        of more than one dimension run in the compute dtype; with grad
+        enabled the result is differentiable in the weights that require
+        it."""
+        params = {name: p.to(self.compute_dtype)
+                  if p.dtype == torch.float32 and p.ndim > 1 else p
+                  for name, p in self.named_parameters()}
+        params = _tree_of(params)
+        src = self._frontend(params, batch)
+        x = self._embed(params, self._tokens(batch["tokens"]))
+        x, _ = self._run_blocks(params, x, "full", src=src)
+        return cross_entropy_loss(self._logits(params, x),
+                                  self._tokens(batch["labels"]))

@@ -18,7 +18,8 @@ tolerances below), and a reduced model's kernel path its plain path; a
 reduced MoE model's prefill on the card equals the CPU's; the jaxsim
 kernel (one launch per study) gives the plain version's rows on random
 grids, float32 and float64, with the job state in shared memory and,
-for a table too large for it, in global memory.
+for a table too large for it, in global memory; a training job on the
+card (no kernel) gives the CPU's losses.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
 """
 
@@ -1050,3 +1051,28 @@ def test_jaxsim_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError, match="simulate_ref"):
         jk.simulate_kernel(prm.cpu(), *(x.cpu() for x in table), **kw)
     assert jk.simulate_kernel.launches == before
+
+
+# ------------------------------------------------------ training on the card
+
+def test_training_on_the_card_equals_cpu():
+    """Reduced smollm: five TrainJob steps on the card from the CPU job's
+    initial weights give the CPU's losses (rtol 1e-5) and launch no
+    kernel (the trainer runs the plain path under autograd)."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.train.trainer import TrainJob, TrainJobConfig
+    dev = _cuda_or_skip()
+    cfg = reduced_config(get_config("smollm_135m"))
+    jc = dict(arch="smollm_135m", steps=5, batch=4, seq_len=32, lr=1e-3)
+    cpu = TrainJob(cfg, TrainJobConfig(**jc), "cpu")
+    card = TrainJob(cfg, TrainJobConfig(**jc))
+    assert card.device.type == "cuda"
+    cpu.initialize()
+    card.initialize()
+    card.model.load_state_dict(cpu.model.state_dict())
+    before = fak.flash_attention_bkv.launches
+    cpu.run()
+    card.run()
+    assert fak.flash_attention_bkv.launches == before
+    np.testing.assert_allclose(card.history, cpu.history, rtol=1e-5)

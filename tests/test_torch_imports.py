@@ -3,9 +3,10 @@
 * ``repro_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor any
   module of ``repro``: checked in a fresh interpreter.
 * The copied modules are the reference's byte for byte except
-  ``repro.`` → ``repro_torch.`` in their import lines (and, in
-  ``configs/base.py``, the one module path ``get_config`` imports by
-  name, ``SUBSTITUTIONS``), and the copies give the reference's traces,
+  ``repro.`` → ``repro_torch.`` in their import lines and the named
+  ``SUBSTITUTIONS`` (in ``configs/base.py``, the one module path
+  ``get_config`` imports by name; in ``train/data.py``, its two unused
+  JAX imports dropped), and the copies give the reference's traces,
   contract table and configs.
 * ``compat.resolve_device`` never falls back to the CPU by itself.
 """
@@ -35,13 +36,15 @@ COPIES = ["core/jobs.py", "core/profiles.py", "core/cluster.py",
           "sim/__init__.py", "core/__init__.py", "serving/autoscaler.py",
           "configs/__init__.py", "configs/base.py", "sim/faults.py",
           "core/spec.py", "core/lifecycle.py", "core/runtime_bridge.py",
-          "serving/replay.py"] + [
+          "serving/replay.py", "train/data.py"] + [
     f"configs/{arch}.py" for arch in ARCH_IDS]
-# The one substitution outside import lines: get_config imports the arch
-# module by a string name, which must name the port's copy.
+# The substitutions outside import lines: get_config imports the arch
+# module by a string name, which must name the port's copy; the data
+# pipeline's two JAX imports, which it never uses, are dropped.
 SUBSTITUTIONS = {"configs/base.py": [(
     'importlib.import_module(f"repro.configs.{arch}")',
-    'importlib.import_module(f"repro_torch.configs.{arch}")')]}
+    'importlib.import_module(f"repro_torch.configs.{arch}")')],
+    "train/data.py": [("import jax\nimport jax.numpy as jnp\n", "")]}
 
 _HYGIENE = """
 import sys
@@ -72,7 +75,8 @@ def test_port_imports_no_jax_and_no_reference():
                "repro_torch.models.mamba2, repro_torch.kernels.ssd_scan, "
                "repro_torch.launch.serve, repro_torch.sim.faults, "
                "repro_torch.core.runtime_bridge, "
-               "repro_torch.serving.replay, repro_torch.sim.scenarios; "
+               "repro_torch.serving.replay, repro_torch.sim.scenarios, "
+               "repro_torch.train.trainer, repro_torch.launch.train; "
                "from repro_torch.configs import all_configs; all_configs()")
 
 

@@ -13,8 +13,12 @@
   shed requests.
 * ``GrantBackoff`` and the admission throttle behave as in the
   reference (``tests/test_faults.py``'s serving-layer cases).
-* ``LiveCloud.submit_training`` needs ``repro_torch.train``, which is not
-  ported yet.
+* A live training job (``submit_training``: a reduced smollm
+  ``TrainJob`` on ``mesh="cpu"``) is preempted by a WS spike, which
+  checkpoints it, resumes after the spike and completes all its steps,
+  writing the reference ``LiveCloud``'s ledger (a JAX ``TrainJob``
+  payload) entry for entry; the preempt hook checkpoints a stub payload
+  and pins its progress to the payload's step.
 """
 
 import dataclasses
@@ -22,16 +26,18 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.jobs import Job as RefJob
 from repro.core.runtime_bridge import LiveCloud as RefLiveCloud
+from repro.launch.mesh import make_local_mesh
 from repro.serving import autoscaler as ref_autoscaler
 from repro.serving.replay import replay as ref_replay
 from repro.sim import faults as ref_faults
 from repro.sim import traces as ref_traces
 from repro_torch.core.jobs import Job
 from repro_torch.core.pbj_manager import PBJPolicyParams
-from repro_torch.core.runtime_bridge import LiveCloud
+from repro_torch.core.runtime_bridge import LiveCloud, LiveJob
 from repro_torch.core.ws_manager import InstanceAdjustmentPolicy
 from repro_torch.serving.autoscaler import AutoscaledService, GrantBackoff
 from repro_torch.serving.engine import Request, VirtualReplica
@@ -132,10 +138,83 @@ def test_live_cloud_ledger_equals_reference_under_faults():
         sum(j.completed for j in sim_jobs)
 
 
-def test_submit_training_needs_the_unported_trainer():
-    cloud = LiveCloud(4, lease_seconds=3600.0, duration=DAY)
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.train"):
-        cloud.submit_training(0, "smollm_135m", chips=2)
+# ------------------------------------------------ live training payloads
+
+def preempt_and_resume(cloud, root):
+    """``tests/test_serving_and_bridge.py``'s live scenario: FB policy, a
+    WS spike preempts the training job via checkpoint, the job resumes
+    after the spike recedes and completes. Returns the payload."""
+    cloud.submit_training(jid=1, arch="smollm_135m", chips=6, steps=20)
+    assert 1 in cloud.pbj.running
+    cloud.run_quantum(steps=5)
+    payload = cloud._live[1].payload
+    assert payload.step >= 5
+    cloud.preempt_for_ws(5)                # 8 - 5 < 6: preempted
+    assert 1 not in cloud.pbj.running
+    assert cloud.service.cluster.allocated("WS") == 5
+    assert list((root / "job1").rglob("*")), \
+        "preempt did not write a checkpoint"
+    step_at_preempt = payload.step
+    cloud.set_ws_demand(1)
+    cloud.lease_tick()
+    assert 1 in cloud.pbj.running
+    finished = []
+    for _ in range(6):
+        finished = cloud.run_quantum(steps=5)
+        if finished:
+            break
+    assert finished == [1]
+    assert payload.step == 20 >= step_at_preempt
+    return payload
+
+
+def test_live_cloud_preempt_and_resume_on_the_cpu(tmp_path):
+    cloud = LiveCloud(capacity=8, mesh="cpu", checkpoint_root=str(tmp_path))
+    payload = preempt_and_resume(cloud, tmp_path)
+    assert payload.device == torch.device("cpu")
+    assert payload.model.impl == "torch"
+    assert len(payload.history) == 20 and all(np.isfinite(payload.history))
+    # each quantum's run ends in a checkpoint; the last three are kept
+    assert payload.ckpt.all_steps() == [10, 15, 20]
+
+
+def test_live_training_ledger_equals_reference(tmp_path):
+    port = LiveCloud(capacity=8, mesh="cpu",
+                     checkpoint_root=str(tmp_path / "port"))
+    ref = RefLiveCloud(capacity=8, mesh=make_local_mesh(),
+                       checkpoint_root=str(tmp_path / "ref"))
+    preempt_and_resume(port, tmp_path / "port")
+    preempt_and_resume(ref, tmp_path / "ref")
+    assert len(port.ledger.entries) > 3
+    assert entries(port.ledger) == entries(ref.ledger)
+    assert port.ledger.kills("ws") == ref.ledger.kills("ws") == 1
+
+
+class _StubPayload:
+    """Stands in for TrainJob in hook tests: counts checkpoints."""
+
+    def __init__(self, step=7):
+        self.step = step
+        self.checkpoints = 0
+
+    def checkpoint(self, block=False):
+        self.checkpoints += 1
+
+
+def test_preempt_hook_checkpoints_live_victims():
+    """A live job killed by a WS spike gets a checkpoint call at the
+    manager's kill site, and its queue entry's progress is pinned to the
+    payload's step count (``tests/test_serving_and_bridge.py``)."""
+    cloud = LiveCloud(capacity=8, lease_seconds=60.0)
+    job = Job(jid=9, submit=0.0, size=6, runtime=30.0)
+    stub = _StubPayload(step=7)
+    cloud._live[9] = LiveJob(job, stub)
+    cloud.submit_job(job)
+    assert 9 in cloud.pbj.running
+    assert cloud.preempt_for_ws(5) == [9]
+    assert stub.checkpoints == 1
+    assert job.progress == 7.0
+    assert 9 in [j.jid for j in cloud.pbj.queue]
 
 
 # ---------------------------------------------------------------- replay

@@ -194,8 +194,10 @@ def test_impl_resolution_and_device():
     assert Model(cfg, "cpu").with_impl("cuda").impl == "cuda"
     with pytest.raises(ValueError, match="impl"):
         Model(cfg, "cpu", impl="pallas")
-    with pytest.raises(NotImplementedError, match="training"):
-        Model(cfg, "cpu").loss()
+    batch = {"tokens": np.zeros((1, 4), np.int32),
+             "labels": np.ones((1, 4), np.int32)}
+    loss = Model(cfg, "cpu").init(0).loss(batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             Model(cfg)

@@ -221,7 +221,11 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    model's; every loss finite and the last four steps'
                    mean below the first four's; step seconds, tokens/s,
                    peak memory, model TFLOP/s and a profiled step's busy
-                   share and top device ops
+                   share and top device ops; the dry run's count of the
+                   same step (launch.cells.analytic_cost) beside the hand
+                   count, its products within 1 % of the hand count less
+                   the products the remat does not redo plus the score
+                   products
   train_reduced    each family's reduced config (smollm, gemma2,
                    granite-moe, mamba2, jamba, llama-vision, whisper; the
                    vlm / audio with SyntheticLM's frontend): Model.loss
@@ -239,6 +243,26 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    WS spike to 5 preempts it through a checkpoint, the
                    spike recedes, a lease tick, run to completion; the
                    decision ledger equal to the same run's on the CPU
+  dryrun_cell, dryrun_card, dryrun
+                   the dry run (repro_torch.launch.dryrun): (a) all 40
+                   arch x shape cells at published width, depth and
+                   global batch on the meta device, in spawned worker
+                   processes, two counting passes a cell (the forecast
+                   with the kernels' routes, analytic_cost on the plain
+                   path): no fail, the skips equal to the configs'
+                   long_500k skips; one line a cell (FLOPs, bytes,
+                   forecast peak, bottleneck, fits_card). (b) On the
+                   card, impl "cuda": every cell whose forecast fits in
+                   90 % of the card's memory at its own global batch, and
+                   gemma2-2b's train_4k, prefill_32k and decode_32k at
+                   the largest batch in {1, 2, 4, ...} whose forecast
+                   fits (cuts in ``reduced``): the forecast peak within
+                   10 % of the growth of max_memory_allocated over the
+                   cell, the kernels launched as the forecast's routes,
+                   a finite result of the forecast's shape; the step's
+                   device ms (time_calls), model TFLOP/s and share of the
+                   forecast's roofline bound, each line with the card's
+                   name and power limit
   kernels          the kernel table line: each kernel's launches on its
                    path (sweep, serve, generate, generate_mamba, jaxsim,
                    serve_moe, generate_moe, serve_whisper and the three
@@ -284,19 +308,23 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs.base import (ATTN, MOE, get_config,  # noqa: E402
-                                      reduced_config)
+from repro_torch.configs.base import (ARCH_IDS, ATTN, MOE,  # noqa: E402
+                                      get_config, reduced_config)
 from repro_torch.core import jaxsim as jaxsimlib  # noqa: E402
 from repro_torch.core.jobs import Job  # noqa: E402
 from repro_torch.core.profiles import scale_profile  # noqa: E402
 from repro_torch.core.pbj_manager import PBJPolicyParams  # noqa: E402
 from repro_torch.core.runtime_bridge import LiveCloud  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import flash_decode as fdk  # noqa: E402
 from repro_torch.kernels import jaxsim_step as jsk  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import round_step as rsk  # noqa: E402
+from repro_torch.launch import cells, dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis as hlo  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.models import mlp as mlpmod  # noqa: E402
 from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
@@ -1744,13 +1772,6 @@ VISION_ARCH, VISION_LAYERS, VISION_PROMPT = "llama32_vision_90b", 10, 1024
 HYBRID_ARCH, HYBRID_D_FF, HYBRID_PROMPT = "jamba15_large_398b", 3072, 2048
 
 
-def visible_pairs(s, window):
-    """(query, key) pairs causal attention with ``window`` evaluates."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def bound(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
@@ -1809,9 +1830,8 @@ def attn_case(cfg, s, window, dtype, device, gen, q_scale=1.0, batch=1):
             enable_gqa=True)
 
     ms, device_bound = queued_ms(kernel, 3)
-    pairs = visible_pairs(s, window)
-    nbytes = q.element_size() * 2 * (q.numel() + k.numel())
-    flops = 4 * hd * pairs * h
+    pairs = kcost.visible_pairs(s, window)
+    flops, nbytes = kcost.attention_cost(q, k, window)
     bound_ms, bound_by = bound(nbytes, flops, TENSOR_PEAK_FLOPS[dtype])
     if dtype == torch.float32:
         core_ms = 1e3 * flops / CUDA_CORE_FLOPS
@@ -1875,9 +1895,7 @@ def decode_case(cfg, pos, window, dtype, device, gen, q_scale=1.0,
 
     ms, device_bound = queued_ms(kernel, 20)
     n_vis = int(valid.sum())
-    nbytes = k.element_size() * 2 * bkv * n_vis * hd \
-        + 2 * q.element_size() * q.numel()
-    flops = 4 * hd * n_vis * bkv * g
+    flops, nbytes = kcost.decode_cost(q, k, n_vis)
     bound_ms, bound_by = bound(nbytes, flops, CORE_PEAK_FLOPS[dtype])
     out = dict(arch=cfg.name, pos=pos, window=window, dtype=str(dtype)[6:],
                batch=DECODE_BATCH, kv_heads=kv, group=g, head_dim=hd,
@@ -2488,11 +2506,8 @@ def ssd_case(cfg, batch, seq, dtype, device, gen, with_s0=False,
         del xs, as_, Bs, Cs
     # Per chunk: C·Bᵀ and (C·Bᵀ∘L)·x over the Q(Q+1)/2 pairs the mask
     # keeps, C·Sᵀ and (x∘w)ᵀ·B in full.
-    pairs = q * (q + 1) // 2
-    flops = bh * (seq // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+    flops, nbytes = kcost.ssd_cost(x, a, B, C, q, with_s0)
     e = x.element_size()
-    nbytes = (e * (2 * x.numel() + B.numel() + C.numel()) + 4 * a.numel()
-              + 4 * bh * p * n * (2 if with_s0 else 1))
     bound_ms, bound_by = bound(nbytes, flops, TENSOR_PEAK_FLOPS[dtype])
     if dtype == torch.float32:
         core_ms = 1e3 * flops / CUDA_CORE_FLOPS
@@ -2549,6 +2564,9 @@ TRAIN_REDUCED_ARCHS = ("smollm_135m", "gemma2_2b", "granite_moe_3b",
 # share of its largest magnitude
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 5e-4
+# the dry run's product count of a train_full step against the hand
+# count corrected by the remat's tail and the score products
+TRAIN_COUNT_RTOL = 0.01
 
 
 def no_kernel_launched(phase):
@@ -2566,6 +2584,24 @@ def train_flops(model, tokens):
     n = sum(p.numel() for p in model.parameters())
     blocks = sum(p.numel() for p in model.blocks.parameters())
     return 6 * n * tokens + 2 * blocks * tokens
+
+
+def remat_tail_and_scores(model, batch, seq_len):
+    """The two terms by which the hand count ``train_flops`` differs from
+    the products the step runs: the products the remat does NOT redo
+    (PyTorch's non-reentrant checkpoint stops its recompute at the last
+    tensor the backward needs, so each period's last product, the last
+    layer's w2, is not recomputed: 2 per parameter and token) and the
+    attention's score products it leaves out (Q·Kᵀ and P·V over all s²
+    pairs of the plain path, forward, recompute and twice in the
+    backward)."""
+    cfg = model.cfg
+    last = model.blocks[f"l{len(model.pattern) - 1}"]
+    tail = last.mlp["w2"].numel() if hasattr(last, "mlp") else 0
+    tokens = batch * seq_len
+    scores = 4 * 4 * batch * cfg.n_heads * seq_len ** 2 * cfg.head_dim_ \
+        * cfg.n_layers
+    return 2 * tail * tokens, scores
 
 
 def step_split(job, step):
@@ -2674,6 +2710,22 @@ def train_full_phase(device, smi):
 
     prof = breakdown(one_more_step)
     split = step_split(job, one_more_step)
+    # The dry run's count of the same step (launch.cells.analytic_cost on
+    # the meta device: loss, gradients and the AdamW update) beside the
+    # hand count; its products held to the hand count corrected by the
+    # remat's early stop and the score products.
+    counted = cells.analytic_cost(LM_ARCH, "train_4k", torch.float32,
+                                  global_batch=jc.batch,
+                                  seq_len=jc.seq_len)
+    tail, scores = remat_tail_and_scores(job.model, jc.batch, jc.seq_len)
+    expected_products = flops - tail + scores
+    products_rel = counted["products"] / expected_products - 1.0
+    if abs(products_rel) > TRAIN_COUNT_RTOL:
+        raise AssertionError(
+            f"train_full: the dry run counts {counted['products']} product "
+            f"FLOPs a step, the hand count {flops} less the remat's "
+            f"untouched tail {tail} plus the scores {scores} is "
+            f"{expected_products}: relative {products_rel}")
     emit("train_full", card=smi, arch=LM_ARCH,
          params=sum(p.numel() for p in job.model.parameters()),
          n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
@@ -2688,6 +2740,12 @@ def train_full_phase(device, smi):
          step_s=step_s, first_step_s=step_s[0], median_step_s=median_s,
          tokens_per_s=tokens / median_s, peak_memory_gb=peak / 1e9,
          model_tflop_per_step=flops / 1e12,
+         analytic_tflop_per_step=counted["flops"] / 1e12,
+         analytic_products_tflop=counted["products"] / 1e12,
+         analytic_over_hand=counted["flops"] / flops,
+         remat_tail_tflop=tail / 1e12, score_tflop=scores / 1e12,
+         analytic_products_rel=products_rel,
+         analytic_tol={"products_rtol": TRAIN_COUNT_RTOL},
          achieved_tflop_per_s=flops / median_s / 1e12,
          cuda_core_bound_s=flops / CUDA_CORE_FLOPS,
          profiled_step=prof, step_split=split,
@@ -2837,6 +2895,177 @@ def live_train_phase(device, smi, root):
          ledger_equal_cpu=same, kills=card.ledger.kills(),
          losses=payload.history, cpu_losses=cpu_payload.history,
          host_wall_s=card_s)
+
+
+# The dry run (launch/dryrun.py) against the card: a cell runs on the card
+# when its forecast peak fits in this share of the card's memory; the
+# forecast peak must lie within DRYRUN_PEAK_RTOL of the growth of
+# max_memory_allocated over the cell; gemma2-2b's three LM cells also run
+# at the largest batch in {1, 2, 4, ...} whose forecast fits.
+DRYRUN_FIT = 0.9
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_CUT_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_KERNELS = ("flash_attention", "flash_decode", "ssd_scan")
+# worker processes of the meta grid (spawned: no CUDA in them)
+DRYRUN_WORKERS = 8
+
+
+def dryrun_grid():
+    """Every (arch, shape) cell through dryrun.run_cell on the meta
+    device, in worker processes."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    jobs = [(a, sh) for a in ARCH_IDS for sh in dryrun.SHAPES]
+    layout = make_local_mesh("meta")
+    workers = min(DRYRUN_WORKERS, len(jobs), mp.cpu_count())
+    with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) \
+            as pool:
+        return list(pool.map(dryrun.run_cell, *zip(*jobs),
+                             [layout] * len(jobs)))
+
+
+def card_cell(arch, shape_name, device, smi, forecast, global_batch=None):
+    """One cell on the card, built and run as the forecast ran it on
+    meta (impl "cuda" for prefill and decode): the growth of
+    max_memory_allocated over the cell (from before its first argument to
+    the end of its first step) against the forecast peak, the kernels'
+    launches in that step against the forecast's routes, a finite result
+    of the forecast's shape, then the step's device time (time_calls),
+    its model TFLOP/s and its share of the forecast's roofline bound."""
+    cfg = get_config(arch)
+    shape = dataclasses.replace(
+        cfg.shapes()[shape_name],
+        global_batch=global_batch or cfg.shapes()[shape_name].global_batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    cell = cells.build_cell(arch, shape_name, make_local_mesh(device),
+                            global_batch=global_batch)
+    model, step, args = cell.build()
+    out = step(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in read_counts().items() if v}
+    result = out[0] if shape.kind != "train" else out[2]["loss"]
+    finite = bool(torch.isfinite(result.float()).all())
+    got_shape = list(result.shape)
+    del out, result
+    ms, host_ms = time_calls(lambda: step(*args), 1 if first_s > 2 else 3)
+    impl = model.impl
+    del model, step, args, cell
+    torch.cuda.empty_cache()
+    want_launches = {k: v for k, v in forecast["kernel_launches"].items()}
+    model_flops = hlo.model_flops_estimate(cfg, shape)
+    roof = hlo.analyze(arch, shape_name, forecast, 1,
+                       model_flops=model_flops)
+    bound_s = max(roof.t_compute, roof.t_memory)
+    rel = forecast["peak_bytes"] / peak - 1.0
+    rec = dict(card=smi, arch=arch, shape=shape_name, kind=shape.kind,
+               global_batch=shape.global_batch, seq_len=shape.seq_len,
+               impl=impl, forecast_peak_gb=forecast["peak_bytes"] / 1e9,
+               measured_peak_gb=peak / 1e9, peak_rel=rel,
+               peak_tol=DRYRUN_PEAK_RTOL,
+               memory_analysis=forecast["memory_analysis"],
+               launches=launches, forecast_launches=want_launches,
+               result_shape=got_shape, result_finite=finite,
+               first_call_s=first_s, ms=ms, host_ms=host_ms,
+               model_flops=model_flops,
+               model_tflop_per_s=model_flops / ms / 1e9,
+               forecast_flops=forecast["flops"],
+               forecast_bytes=forecast["bytes"],
+               bound_ms=1e3 * bound_s, bottleneck=roof.bottleneck,
+               bound_fraction=1e3 * bound_s / ms)
+    emit("dryrun_card", **rec)
+    if abs(rel) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dryrun {arch}/{shape_name} at batch "
+                             f"{shape.global_batch}: forecast peak "
+                             f"{forecast['peak_bytes']} against "
+                             f"{peak} measured ({rel:+.3f})")
+    if launches != want_launches:
+        raise AssertionError(f"dryrun {arch}/{shape_name}: the card "
+                             f"launched {launches}, the forecast's routes "
+                             f"{want_launches}")
+    if not finite or got_shape != forecast["result"]["shape"]:
+        raise AssertionError(f"dryrun {arch}/{shape_name}: result "
+                             f"{got_shape}, finite {finite}; forecast "
+                             f"{forecast['result']}")
+    return rec
+
+
+def dryrun_phase(device, smi):
+    """(a) The dry run's grid: all 40 cells at published width, depth
+    and global batch on meta; no fail, and the skips are the configs'
+    long_500k skips. (b) The forecast against the card: every cell whose
+    forecast fits in DRYRUN_FIT of the card's memory, and gemma2-2b's
+    LM cells cut to the largest batch whose forecast fits."""
+    t0 = time.time()
+    recs = dryrun_grid()
+    grid_s = time.time() - t0
+    for r in recs:
+        line = {k: r.get(k) for k in ("arch", "shape", "status", "seconds",
+                                      "reason", "error")}
+        if r["status"] == "ok":
+            line.update(hlo_flops=r["hlo_flops"], hlo_bytes=r["hlo_bytes"],
+                        forecast_flops=r["forecast"]["flops"],
+                        forecast_bytes=r["forecast"]["bytes"],
+                        forecast_peak_gb=r["forecast"]["peak_bytes"] / 1e9,
+                        bottleneck=r["bottleneck"],
+                        fits_card=r["fits_card"],
+                        kernel_launches=r["forecast"]["kernel_launches"])
+        emit("dryrun_cell", **line)
+    failed = [(r["arch"], r["shape"], r.get("error")) for r in recs
+              if r["status"] == "fail"]
+    skipped = {(r["arch"], r["shape"]) for r in recs
+               if r["status"] == "skip"}
+    want_skips = {(a, sh) for a in ARCH_IDS
+                  for sh, spec in get_config(a).shapes().items()
+                  if spec.skip}
+    if failed or skipped != want_skips or len(recs) != 40:
+        raise AssertionError(f"dryrun grid: failed {failed}; skipped "
+                             f"{sorted(skipped)}, the configs skip "
+                             f"{sorted(want_skips)}")
+    total = torch.cuda.get_device_properties(device).total_memory
+    room = DRYRUN_FIT * total
+    runs = [(r["arch"], r["shape"], None,
+             dict(r["forecast"], memory_analysis=r["memory_analysis"]))
+            for r in recs
+            if r["status"] == "ok" and r["forecast"]["peak_bytes"] <= room]
+    meta = make_local_mesh("meta")
+    cuts = {}
+    for sh in DRYRUN_CUT_SHAPES:
+        b, best = 1, None
+        while True:
+            f = cells.count_cell(cells.build_cell(LM_ARCH, sh, meta,
+                                                  global_batch=b))
+            if f["peak_bytes"] > room:
+                break
+            best = (b, f)
+            b *= 2
+        if best is None:
+            raise AssertionError(f"dryrun: {LM_ARCH}/{sh} does not fit the "
+                                 f"card at batch 1")
+        cuts[sh] = best[0]
+        runs.append((LM_ARCH, sh, best[0], best[1]))
+    card = [card_cell(a, sh, device, smi, f, gb) for a, sh, gb, f in runs]
+    emit("dryrun", card=smi, grid_s=grid_s, workers=DRYRUN_WORKERS,
+         cells=len(recs), ok=sum(r["status"] == "ok" for r in recs),
+         skip=len(skipped), fail=0,
+         fits_card=[(r["arch"], r["shape"]) for r in recs
+                    if r.get("fits_card")],
+         card_memory_gb=total / 1e9, fit_share=DRYRUN_FIT,
+         reduced={f"{LM_ARCH}/{sh}": f"global batch {b} (published "
+                  f"{get_config(LM_ARCH).shapes()[sh].global_batch}): the "
+                  f"largest power of 2 whose forecast fits"
+                  for sh, b in cuts.items()},
+         ran_on_card=[(c["arch"], c["shape"], c["global_batch"])
+                      for c in card],
+         max_abs_peak_rel=max(abs(c["peak_rel"]) for c in card),
+         wall_s=time.time() - t0)
+    return card
 
 
 def mean_of(cases, key):
@@ -3172,6 +3401,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_resume_phase(device, smi, Path(tmp))
         live_train_phase(device, smi, Path(tmp))
+
+    # --- the dry run: every arch x shape cell's cost and memory forecast
+    # on meta, checked against the card where it fits
+    torch.cuda.empty_cache()
+    dryrun_phase(device, smi)
 
     # --- the kernel table line
     # round_step: times and bounds at the main path's shapes, the float32

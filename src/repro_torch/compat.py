@@ -2,10 +2,15 @@
 
 ``resolve_device`` is the one place that decides where work runs: the
 card by default, the CPU only when the caller asks for it. There is no
-silent CPU fallback — a caller that wants the CPU says so.
+silent CPU fallback — a caller that wants the CPU says so. ``"meta"``
+(shapes and dtypes, no storage) is taken only when asked for: the dry
+run (``launch/dryrun.py``) builds its cells there.
 ``resolve_backend`` is the one place that decides what runs there: a
 CUDA kernel on the card, its plain PyTorch version on the CPU, and the
-plain version on the card only when the caller asks for it.
+plain version on the card only when the caller asks for it. On the meta
+device the default is what the card would run, the kernels, whose
+wrappers then allocate their outputs and report their cost
+(``kernels/cost.py``).
 
 ``resolve_pack_dtype`` is the counterpart of ``repro.compat.
 resolve_pack_dtype``: packs default to float32 (what the JAX package
@@ -29,8 +34,9 @@ BACKENDS = ("cuda", "torch")
 
 def resolve_device(device: Device = None) -> torch.device:
     """``None`` → the current CUDA device; raises when there is none.
-    ``"cpu"`` (or a CPU ``torch.device``) → the CPU. A CUDA device that
-    is asked for but absent raises too."""
+    ``"cpu"`` (or a CPU ``torch.device``) → the CPU; ``"meta"`` → the
+    meta device. A CUDA device that is asked for but absent raises
+    too."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -41,25 +47,25 @@ def resolve_device(device: Device = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            f"available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}; expected cuda "
-                         f"or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}; expected cuda, "
+                         f"cpu or meta")
     return dev
 
 
 def resolve_backend(choice: Optional[str], device: torch.device,
                     name: str = "impl", plain_on_cpu: bool = False) -> str:
     """The backend that runs on ``device``: ``None`` → ``"cuda"`` on a
-    CUDA device and ``"torch"`` on the CPU; ``"torch"`` on a card only
-    when asked for. ``"cuda"`` on the CPU raises, unless
+    CUDA or meta device and ``"torch"`` on the CPU; ``"torch"`` on a card
+    only when asked for. ``"cuda"`` on the CPU raises, unless
     ``plain_on_cpu``: then the kernels' wrappers are called and each runs
     its plain version on the CPU tensors it is given. ``name`` is the
     caller's option in messages."""
     if choice is None:
-        return "cuda" if device.type == "cuda" else "torch"
+        return "cuda" if device.type in ("cuda", "meta") else "torch"
     if choice not in BACKENDS:
         raise ValueError(f"{name} {choice!r}: expected one of {BACKENDS}")
-    if choice == "cuda" and device.type != "cuda" and not plain_on_cpu:
+    if choice == "cuda" and device.type == "cpu" and not plain_on_cpu:
         raise ValueError(f"{name}=\"cuda\" needs CUDA tensors; the CPU "
                          f"runs {name}=\"torch\"")
     return choice

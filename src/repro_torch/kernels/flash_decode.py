@@ -22,14 +22,20 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.kernels.cost import H100_SMS
 from repro_torch.kernels.cudalib import (DTYPE_CODES, HEAD_DIMS,
                                         SM90A_FLAGS, CudaLibrary,
                                         require_cuda, require_layout,
                                         stream_zeroed_ints)
 
-__all__ = ["flash_decode_bkv", "LIBRARY", "MAX_GROUP"]
+__all__ = ["flash_decode_bkv", "LIBRARY", "MAX_GROUP", "chunk_keys",
+           "partials", "runs"]
 
 MAX_GROUP = 8
+# csrc/flash_decode.cu's K_BYTES and MAX_CK: a chunk holds 16 KB of K
+# rows, at most 256 keys.
+CHUNK_K_BYTES = 16384
+MAX_CHUNK_KEYS = 256
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -49,12 +55,32 @@ LIBRARY = CudaLibrary("flash_decode", SM90A_FLAGS, _declare,
 _SMS: dict = {}
 
 
-def _runs(device: torch.device, bkv: int, nchunk: int) -> int:
-    """Blocks per row group: one wave of one block per SM."""
+def runs(device: torch.device, bkv: int, nchunk: int) -> int:
+    """Blocks per row group: one wave of one block per SM (an H100 SXM's
+    132 on the meta device)."""
+    if device.type == "meta":
+        return max(1, min(nchunk, H100_SMS // bkv))
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
     return max(1, min(nchunk, _SMS[device] // bkv))
+
+
+def chunk_keys(dtype: torch.dtype, hd: int) -> int:
+    """Keys per chunk of the kernel's ring for a ``dtype`` cache: the
+    kernel's ``flash_decode_chunk_keys``, without building it."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return min(CHUNK_K_BYTES // (hd * itemsize), MAX_CHUNK_KEYS)
+
+
+def partials(q: torch.Tensor, nb: int):
+    """The split-K scratch of ``nb`` runs per row group: the runs' float32
+    accumulators (BKV, nb, G, hd) and their (max, sum) pairs."""
+    bkv, g, hd = q.shape
+    return (torch.empty(bkv, nb, g, hd, dtype=torch.float32,
+                        device=q.device),
+            torch.empty(bkv, nb, g, 2, dtype=torch.float32,
+                        device=q.device))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -99,12 +125,9 @@ def flash_decode_bkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = LIBRARY.get()
     bkv, g, hd = q.shape
     s = k.shape[1]
-    nb = _runs(q.device, bkv,
-               -(-s // lib.flash_decode_chunk_keys(DTYPE_CODES[k.dtype], hd)))
-    part_acc = torch.empty(bkv, nb, g, hd, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(bkv, nb, g, 2, dtype=torch.float32,
-                          device=q.device)
+    nb = runs(q.device, bkv,
+              -(-s // lib.flash_decode_chunk_keys(DTYPE_CODES[k.dtype], hd)))
+    part_acc, part_ml = partials(q, nb)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device)
     err = lib.flash_decode_fwd(

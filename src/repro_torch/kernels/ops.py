@@ -9,7 +9,12 @@ repeated to heads, batch × heads folded). On CUDA tensors they launch
 the CUDA kernels (``flash_attention.flash_attention_bkv``,
 ``flash_decode.flash_decode_bkv``, ``ssd_scan.ssd_scan_bh``); on CPU
 tensors, and only there, they run the kernels' plain versions (``ref``),
-which is what the CPU tests reach through ``Model(impl="cuda")``.
+which is what the CPU tests reach through ``Model(impl="cuda")``. On
+meta tensors (the dry run) each allocates what the CUDA wrapper
+allocates, its output and scratch, and reports the kernel's FLOPs and
+bytes (``cost.report``) in place of a launch; flash decode, which cannot
+read a meta position, counts every key of the cache (within the window)
+as visible.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
+from repro_torch.kernels import flash_decode as fdk
 from repro_torch.kernels.flash_attention import flash_attention_bkv
 from repro_torch.kernels.flash_decode import flash_decode_bkv
 from repro_torch.kernels.ssd_scan import ssd_scan_bh
@@ -38,9 +44,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         .reshape(b * kv * g, s, hd).contiguous()
     kk = k.permute(0, 2, 1, 3).reshape(b * kv, k.shape[1], hd).contiguous()
     vk = v.permute(0, 2, 1, 3).reshape(b * kv, v.shape[1], hd).contiguous()
-    fn = flash_attention_bkv if q.device.type == "cuda" \
-        else ref.flash_attention_ref
-    out = fn(qk, kk, vk, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        out = torch.empty_like(qk)
+        cost.report("flash_attention", *cost.attention_cost(qk, kk, window,
+                                                            causal))
+    else:
+        fn = flash_attention_bkv if q.device.type == "cuda" \
+            else ref.flash_attention_ref
+        out = fn(qk, kk, vk, causal=causal, window=window, softcap=softcap)
     return out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4) \
         .reshape(b, s, h, hd)
 
@@ -57,10 +68,29 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.reshape(b * kv, g, hd).contiguous()
     kf = k_cache.reshape(b * kv, k_cache.shape[2], hd)
     vf = v_cache.reshape(b * kv, v_cache.shape[2], hd)
-    fn = flash_decode_bkv if q.device.type == "cuda" \
-        else ref.flash_decode_ref
-    out = fn(qf, kf, vf, pos, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        out = _meta_decode(qf, kf, pos, window)
+    else:
+        fn = flash_decode_bkv if q.device.type == "cuda" \
+            else ref.flash_decode_ref
+        out = fn(qf, kf, vf, pos, window=window, softcap=softcap)
     return out.reshape(b, 1, h, hd)
+
+
+def _meta_decode(q: torch.Tensor, k: torch.Tensor, pos,
+                 window: Optional[int]) -> torch.Tensor:
+    """``flash_decode_bkv``'s allocations on meta tensors: its int32
+    position, the split-K partials and the output."""
+    torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    s = k.shape[1]
+    nb = fdk.runs(q.device, q.shape[0],
+                  -(-s // fdk.chunk_keys(k.dtype, q.shape[2])))
+    partials = fdk.partials(q, nb)
+    out = torch.empty_like(q)
+    visible = s if window is None else min(window, s)
+    cost.report("flash_decode", *cost.decode_cost(q, k, visible))
+    del partials
+    return out
 
 
 def fold_ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
@@ -91,7 +121,28 @@ def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     in float32)."""
     b, l, h, p = x.shape
     xf, af, Bh, Ch, s0 = fold_ssd(x, a, B, C, init_state)
-    fn = ssd_scan_bh if x.device.type == "cuda" else ref.ssd_scan_bh_ref
-    y, sT = fn(xf, af, Bh, Ch, s0=s0, chunk=chunk)
+    if x.device.type == "meta":
+        y, sT = _meta_ssd(xf, af, Bh, Ch, s0, chunk)
+    else:
+        fn = ssd_scan_bh if x.device.type == "cuda" else ref.ssd_scan_bh_ref
+        y, sT = fn(xf, af, Bh, Ch, s0=s0, chunk=chunk)
     return (y.reshape(b, h, l, p).permute(0, 2, 1, 3),
             sT.reshape(b, h, p, B.shape[3]))
+
+
+def _meta_ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, s0: Optional[torch.Tensor], chunk: int):
+    """``ssd_scan_bh``'s allocations on meta tensors: float32 copies of
+    ``a`` and ``s0`` where they are not float32 already, y and the final
+    state."""
+    chunk = min(chunk, x.shape[1])
+    a = a.float().contiguous()
+    if s0 is not None:
+        s0 = s0.float().contiguous()
+    bh, _, p = x.shape
+    y = torch.empty_like(x)
+    sT = torch.empty(bh, p, B.shape[-1], dtype=torch.float32,
+                     device=x.device)
+    cost.report("ssd_scan", *cost.ssd_cost(x, a, B, C, chunk,
+                                           s0 is not None))
+    return y, sT

@@ -32,7 +32,7 @@ from repro_torch.models.common import (KeyGen, normal_init, promote,
 from repro_torch.models.common import softcap as _softcap
 
 __all__ = ["NEG_INF", "attn_shapes", "init_attn", "attend_full",
-           "attend_cross", "init_cache", "prefill_attn", "decode_attn",
+           "attend_cross", "cache_shapes", "init_cache", "prefill_attn", "decode_attn",
            "decode_cross_attn", "fill_cross_cache"]
 
 NEG_INF = -2.0e38
@@ -186,17 +186,24 @@ def attend_cross(p: Dict, x: torch.Tensor, src: torch.Tensor,
 # over head_dim with no transpose; prefill pays one transpose when
 # filling.
 
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                 cross_len: int = 0) -> Dict[str, Tuple[int, ...]]:
+    """The shapes of ``init_cache``'s tensors."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    lengths = {"k": max_len, "v": max_len}
+    if cross_len:
+        lengths.update(ck=cross_len, cv=cross_len)
+    return {name: (batch, kv, t, hd) for name, t in lengths.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                cross_len: int = 0, dtype=torch.bfloat16,
                device=None) -> Dict[str, torch.Tensor]:
     """Per-attention-layer cache template (used stacked over periods);
     ``cross_len`` adds the cross-attention K/V ``ck`` / ``cv``."""
-    kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    lengths = {"k": max_len, "v": max_len}
-    if cross_len:
-        lengths.update(ck=cross_len, cv=cross_len)
-    return {name: torch.zeros(batch, kv, t, hd, dtype=dtype, device=device)
-            for name, t in lengths.items()}
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in cache_shapes(cfg, batch, max_len,
+                                            cross_len).items()}
 
 
 def _sdpa_cached(q: torch.Tensor, k_cache: torch.Tensor,

@@ -37,7 +37,8 @@ from repro_torch.models.common import (KeyGen, normal_init, promote,
                                        rms_norm_gated)
 
 __all__ = ["CHUNK", "N_GROUPS", "F32_PARAMS", "dims", "mamba_shapes",
-           "init_mamba", "ssd_chunked", "mamba_full", "init_mamba_cache",
+           "init_mamba", "ssd_chunked", "mamba_full", "mamba_cache_shapes",
+           "init_mamba_cache",
            "mamba_prefill", "mamba_decode"]
 
 CHUNK = 128
@@ -195,14 +196,20 @@ def mamba_full(p: Dict, u: torch.Tensor, cfg: ArchConfig,
     return _mamba_forward(p, u, cfg, impl)[0]
 
 
-def init_mamba_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device=None) -> Dict[str, torch.Tensor]:
+def mamba_cache_shapes(cfg: ArchConfig,
+                       batch: int) -> Dict[str, Tuple[int, ...]]:
+    """The shapes of ``init_mamba_cache``'s tensors."""
     d_inner, nh, n = dims(cfg)
     gbc = 2 * N_GROUPS * n
-    kw = dict(dtype=dtype, device=device)
-    return {"state": torch.zeros(batch, nh, cfg.ssm_head_dim, n, **kw),
-            "conv_x": torch.zeros(batch, cfg.ssm_conv - 1, d_inner, **kw),
-            "conv_bc": torch.zeros(batch, cfg.ssm_conv - 1, gbc, **kw)}
+    return {"state": (batch, nh, cfg.ssm_head_dim, n),
+            "conv_x": (batch, cfg.ssm_conv - 1, d_inner),
+            "conv_bc": (batch, cfg.ssm_conv - 1, gbc)}
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                     device=None) -> Dict[str, torch.Tensor]:
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in mamba_cache_shapes(cfg, batch).items()}
 
 
 def mamba_prefill(p: Dict, u: torch.Tensor, cfg: ArchConfig, cache: Dict,

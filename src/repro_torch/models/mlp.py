@@ -107,11 +107,15 @@ def moe_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cap = _capacity(nl, cfg)
     pk, ik, slot, keep = _route(xl, p["router"], cfg)
     # Dispatch: each kept pair owns its (expert, slot), so the reference's
-    # scatter-add into zeros is a plain write; dropped pairs are masked
-    # out before indexing.
-    tok = torch.arange(nl, device=x.device)[:, None].expand(nl, k)
-    buf = xl.new_zeros(e, cap, d)
-    buf[ik[keep], slot[keep]] = xl[tok[keep]]
+    # scatter-add into zeros is a plain write. Every pair is written, with
+    # static shapes (no boolean indexing, so no host sync and a meta
+    # route): a kept pair to row expert · cap + slot of a flat buffer, a
+    # dropped one to the spare last row, which the (e, cap, d) view
+    # leaves out.
+    dest = torch.where(keep, ik * cap + slot, e * cap).reshape(-1)
+    buf = xl.new_zeros(e * cap + 1, d)
+    buf.index_copy_(0, dest, xl.repeat_interleave(k, dim=0))
+    buf = buf[:e * cap].view(e, cap, d)
     a, w1 = promote(buf, p["w1"])
     h = torch.nn.functional.silu(torch.bmm(a, w1)) \
         * torch.bmm(a, p["w3"].to(a.dtype))

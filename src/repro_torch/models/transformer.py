@@ -245,18 +245,20 @@ class Model(nn.Module):
         cfg, n = self.cfg, self.cfg.n_periods
 
         def layer(sp):
+            """name → (shape, dtype) of one layer's cache."""
             if sp.mixer == MAMBA:
-                return M.init_mamba_cache(cfg, batch, torch.float32, "meta")
+                return {name: (shape, torch.float32) for name, shape in
+                        M.mamba_cache_shapes(cfg, batch).items()}
             cross_len = cfg.frontend_len if sp.cross or \
                 sp.mixer == ATTN_CROSS else 0
-            c = A.init_cache(cfg, batch, max_len, cross_len, dtype, "meta")
+            c = A.cache_shapes(cfg, batch, max_len, cross_len)
             if sp.mixer == ATTN_CROSS:
                 del c["k"], c["v"]
-            return c
+            return {name: (shape, dtype) for name, shape in c.items()}
 
-        return {f"l{i}": {name: torch.zeros((n,) + t.shape, dtype=t.dtype,
+        return {f"l{i}": {name: torch.zeros((n,) + shape, dtype=dt,
                                             device=self.device)
-                          for name, t in layer(sp).items()}
+                          for name, (shape, dt) in layer(sp).items()}
                 for i, sp in enumerate(self.pattern)}
 
     # ------------------------------------------------------------ forward

@@ -19,7 +19,8 @@ reduced MoE model's prefill on the card equals the CPU's; the jaxsim
 kernel (one launch per study) gives the plain version's rows on random
 grids, float32 and float64, with the job state in shared memory and,
 for a table too large for it, in global memory; a training job on the
-card (no kernel) gives the CPU's losses.
+card (no kernel) gives the CPU's losses; the dry run's mirror of flash
+decode's chunk size equals the kernel's.
 ``python3 chip_smoke.py`` drives the same comparisons at full size.
 """
 
@@ -597,6 +598,20 @@ def test_flash_decode_combine_leaves_its_counters_at_zero_on_the_card():
                 torch.testing.assert_close(got.float(), want.float(),
                                            atol=atol, rtol=rtol)
         assert int(stream_zeroed_ints(stream, 1).abs().sum()) == 0
+
+
+def test_flash_decode_chunk_keys_mirror_the_kernel_on_the_card():
+    """The dry run's meta route sizes flash decode's split-K scratch from
+    ``chunk_keys`` without building the kernel: it equals the kernel's
+    own ``flash_decode_chunk_keys`` for every head dim and cache dtype."""
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels.cudalib import DTYPE_CODES, HEAD_DIMS
+    _cuda_or_skip()
+    lib = fdk.LIBRARY.get()
+    for dtype, code in DTYPE_CODES.items():
+        for hd in HEAD_DIMS:
+            assert fdk.chunk_keys(dtype, hd) == \
+                lib.flash_decode_chunk_keys(code, hd), (dtype, hd)
 
 
 @pytest.mark.parametrize("pos,window", [(-1, None), (-5, 64), (1087, 64),

@@ -8,7 +8,8 @@
   ``get_config`` imports by name; in ``train/data.py``, its two unused
   JAX imports dropped), and the copies give the reference's traces,
   contract table and configs.
-* ``compat.resolve_device`` never falls back to the CPU by itself.
+* ``compat.resolve_device`` never falls back to the CPU by itself, and
+  takes the meta device only when asked for it.
 """
 
 import dataclasses
@@ -76,7 +77,10 @@ def test_port_imports_no_jax_and_no_reference():
                "repro_torch.launch.serve, repro_torch.sim.faults, "
                "repro_torch.core.runtime_bridge, "
                "repro_torch.serving.replay, repro_torch.sim.scenarios, "
-               "repro_torch.train.trainer, repro_torch.launch.train; "
+               "repro_torch.train.trainer, repro_torch.launch.train, "
+               "repro_torch.launch.mesh, repro_torch.launch.cells, "
+               "repro_torch.launch.hlo_analysis, "
+               "repro_torch.launch.dryrun; "
                "from repro_torch.configs import all_configs; all_configs()")
 
 
@@ -142,3 +146,19 @@ def test_resolve_device_has_no_silent_cpu_fallback():
     assert compat.resolve_pack_dtype(torch.float64) == np.float64
     with pytest.raises(ValueError, match="float32 or float64"):
         compat.resolve_pack_dtype(np.int32)
+
+
+def test_meta_is_taken_on_request_only():
+    """``None`` still means the card (no fallback to the CPU or to meta);
+    ``"meta"`` is the dry run's explicit request, and a model there runs
+    what the card would, the kernels' routes."""
+    assert compat.resolve_device("meta") == torch.device("meta")
+    assert compat.resolve_backend(None, torch.device("meta")) == "cuda"
+    assert compat.resolve_backend("torch", torch.device("meta")) == "torch"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            compat.resolve_device(None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        compat.resolve_device("xpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        compat.resolve_backend("cuda", torch.device("cpu"))

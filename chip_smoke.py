@@ -49,6 +49,25 @@ Phases, one JSON line each (any failure raises and exits nonzero):
   headline_coalesced
                    the same queries with ScanOptions(coalesce=8): the
                    same four answers and gate, its wall beside headline's
+  sharded          the multi-device paths one card can run: (a) the
+                   sweep (paper_grid(128), both traces, two weeks,
+                   mode="rounds"), plain and coalesced, with
+                   devices=["cuda:0", "cuda:0"]: rows equal to
+                   devices=None's bit for bit, one round_step launch per
+                   shard, trace and policy (8), the lanes each policy
+                   pads; (b) headline_queries with the same list: 135 /
+                   256 / 660 / 1075; (c) devices=<visible + 1> raises
+                   ValueError naming the visible count, a fault pack with
+                   devices raises NotImplementedError; (d) a one-rank
+                   nccl group: reduced gemma2-2b and granite-moe-3b
+                   TrainJobs on a (1, 1) make_mesh layout (DTensor
+                   weights) for 3 steps, losses equal to the plain
+                   one-device job's bit for bit; (e) two ranks on the
+                   card: "cpu only", decided before running, since gloo
+                   carries no send / recv for CUDA tensors (the ring of
+                   the int8 error-feedback all-reduce). The walls of (a)
+                   and (b) beside devices=None's, with the card's name
+                   and power limit
   jaxsim           the §6.6.4 FLB-NUB study (repro_torch.core.jaxsim):
                    benchmarks/tables.py's 12 points over nasa_ipsc(0) +
                    worldcup98(0, 128), two weeks, float32, through the
@@ -226,6 +245,14 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    count, its products within 1 % of the hand count less
                    the products the remat does not redo plus the score
                    products
+  sharded_train_full
+                   gemma2-2b at full width and depth through the DTensor
+                   path (Model.init then place_, the per-rank layers, the
+                   vocabulary loss, the pinned gradients) on a (1, 1)
+                   make_mesh layout of a one-rank nccl group: 3 steps of
+                   train_full's job, losses equal to train_full's first 3
+                   bit for bit; the set-up's and the steps' peak memory
+                   beside the plain job's, step seconds beside its
   train_reduced    each family's reduced config (smollm, gemma2,
                    granite-moe, mamba2, jamba, llama-vision, whisper; the
                    vlm / audio with SyntheticLM's frontend): Model.loss
@@ -246,8 +273,8 @@ Phases, one JSON line each (any failure raises and exits nonzero):
   dryrun_cell, dryrun_card, dryrun
                    the dry run (repro_torch.launch.dryrun): (a) all 40
                    arch x shape cells at published width, depth and
-                   global batch on the meta device, in spawned worker
-                   processes, two counting passes a cell (the forecast
+                   global batch on the meta device (dryrun --workers 8:
+                   a process per architecture), two counting passes a cell (the forecast
                    with the kernels' routes, analytic_cost on the plain
                    path): no fail, the skips equal to the configs'
                    long_500k skips; one line a cell (FLOPs, bytes,
@@ -290,6 +317,7 @@ the script exits 1 and prints no result. It imports only ``torch``,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -2752,6 +2780,8 @@ def train_full_phase(device, smi):
          kernel_launches=read_counts())
     del job
     torch.cuda.empty_cache()
+    return {"losses": hist, "peak_memory_gb": peak / 1e9,
+            "median_step_s": median_s}
 
 
 def loss_and_grads(model, batch):
@@ -2906,22 +2936,16 @@ DRYRUN_FIT = 0.9
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_CUT_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRYRUN_KERNELS = ("flash_attention", "flash_decode", "ssd_scan")
-# worker processes of the meta grid (spawned: no CUDA in them)
+# processes of the meta grid, one per architecture (none touches CUDA)
 DRYRUN_WORKERS = 8
 
 
 def dryrun_grid():
     """Every (arch, shape) cell through dryrun.run_cell on the meta
-    device, in worker processes."""
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-    jobs = [(a, sh) for a in ARCH_IDS for sh in dryrun.SHAPES]
-    layout = make_local_mesh("meta")
-    workers = min(DRYRUN_WORKERS, len(jobs), mp.cpu_count())
-    with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) \
-            as pool:
-        return list(pool.map(dryrun.run_cell, *zip(*jobs),
-                             [layout] * len(jobs)))
+    device: ``dryrun --workers``, one process per architecture."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        return dryrun.main(["--workers", str(DRYRUN_WORKERS), "--out",
+                            out])
 
 
 def card_cell(arch, shape_name, device, smi, forecast, global_batch=None):
@@ -3066,6 +3090,199 @@ def dryrun_phase(device, smi):
          max_abs_peak_rel=max(abs(c["peak_rel"]) for c in card),
          wall_s=time.time() - t0)
     return card
+
+
+# The collectives gloo carries for CUDA tensors (PyTorch's documented
+# backend table: broadcast, all_reduce, barrier); the int8 error-feedback
+# all-reduce also needs send / recv for its ring (batch_isend_irecv).
+GLOO_CUDA_OPS = {"broadcast", "all_reduce", "barrier"}
+EF_ALLREDUCE_OPS = {"all_reduce", "send", "recv"}
+SHARDED_DEVICES = ["cuda:0", "cuda:0"]
+SHARDED_TRAIN = ("gemma2_2b", "granite_moe_3b")
+SHARDED_STEPS = 3
+SHARDED_FULL_STEPS = 3
+
+
+@contextlib.contextmanager
+def one_rank_layout():
+    """A (1, 1) ``make_mesh`` layout of a one-rank nccl group on the card,
+    torn down on leaving."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_train_full_phase(device, smi, plain):
+    """gemma2-2b at full width and depth through the DTensor path on a
+    (1, 1) layout: ``Model.init`` (a whole plain copy, then ``place_``),
+    the per-rank layers, the vocabulary loss and the pinned gradients,
+    ``SHARDED_FULL_STEPS`` steps at train_full's job. The losses must
+    equal train_full's plain job's bit for bit; the peak memory of the
+    set-up and of the steps (``max_memory_allocated``, as train_full
+    reads it) is reported beside the plain job's."""
+    cfg = get_config(LM_ARCH)
+    jc = TrainJobConfig(arch=LM_ARCH, steps=SHARDED_FULL_STEPS,
+                        seed=LM_SEED)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    with one_rank_layout() as layout:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        job = TrainJob(cfg, jc, layout)
+        job.initialize()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        if type(job.model.embed).__name__ != "DTensor":
+            raise AssertionError("sharded_train_full: the layout's weights "
+                                 "are not DTensors")
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for k in range(SHARDED_FULL_STEPS):
+            job.jc.steps = k + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            job.run()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        hist = list(job.history)
+        del job
+    torch.cuda.empty_cache()
+    no_kernel_launched("sharded_train_full")
+    want = plain["losses"][:SHARDED_FULL_STEPS]
+    if hist != want:
+        raise AssertionError(f"sharded_train_full: losses on the (1, 1) "
+                             f"layout {hist} != the plain job's {want}")
+    emit("sharded_train_full", card=smi, arch=LM_ARCH, layout=[1, 1],
+         dtype="float32", batch=jc.batch, seq_len=jc.seq_len,
+         steps=SHARDED_FULL_STEPS, losses=hist, equal_bit_for_bit=True,
+         init_s=init_s, step_s=step_s, median_step_s=float(
+             np.median(step_s[1:])),
+         plain_median_step_s=plain["median_step_s"],
+         allocated_before_gb=base / 1e9,
+         init_peak_memory_gb=init_peak / 1e9,
+         step_peak_memory_gb=peak / 1e9,
+         plain_step_peak_memory_gb=plain["peak_memory_gb"],
+         step_peak_growth_gb=peak / 1e9 - plain["peak_memory_gb"])
+
+
+def sharded_phase(device, smi, grid, workloads, horizon, rows, rows_c,
+                  walls):
+    """The multi-device paths that one card can run: the lane splitter
+    over a device list naming the card twice (every shard launches the
+    round step), the refusals, and the DTensor train step on a one-rank
+    (1, 1) layout of an nccl group."""
+    t_phase = time.time()
+    out = {"devices": SHARDED_DEVICES}
+    n_fb = sum(p.system == "fb" for p in grid)
+    n_flb = sum(p.system == "flb_nub" for p in grid)
+    out["pad_lanes"] = {"fb": -n_fb % len(SHARDED_DEVICES),
+                        "flb_nub": -n_flb % len(SHARDED_DEVICES)}
+    # (a) the sweep, plain and coalesced, split over the list
+    for key, opts, want, wall in (
+            ("sweep", ScanOptions(), rows, walls["sweep"]),
+            ("sweep_coalesced", ScanOptions(coalesce=COALESCE), rows_c,
+             walls["sweep_coalesced"])):
+        zero_counts()
+        t0 = time.time()
+        got = run_sweep_workloads(grid, workloads, horizon, mode="rounds",
+                                  device=device, scan_options=opts,
+                                  devices=SHARDED_DEVICES)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        counts = read_counts()
+        if got != want:
+            bad = [(w, i) for w in range(len(want))
+                   for i, (a, b) in enumerate(zip(want[w], got[w]))
+                   if a != b]
+            raise AssertionError(f"sharded {key}: rows differ from "
+                                 f"devices=None's at {bad[:5]}")
+        shards = len(SHARDED_DEVICES) * len(workloads) * 2
+        if counts["round_step"] != shards or counts["round_step_chunk"]:
+            raise AssertionError(f"sharded {key}: {counts}, expected "
+                                 f"{shards} round_step launches")
+        out[key] = {"wall_s": wall_s, "devices_none_wall_s": wall,
+                    "round_step_launches": counts["round_step"],
+                    "rows_equal_devices_none": True}
+    # (b) the headline queries through the splitter
+    t0 = time.time()
+    hl = headline_queries(devices=SHARDED_DEVICES, device=device)
+    torch.cuda.synchronize()
+    answers = (hl["private"]["min_fb_capacity"], hl["private"]["dcs_size"],
+               hl["public"]["flb_peak"], hl["public"]["ec2_peak"])
+    if answers != (135, 256, 660, 1075):
+        raise AssertionError(f"sharded headline: {answers}")
+    out["headline"] = {"answers": answers, "wall_s": time.time() - t0,
+                       "devices_none_wall_s": walls["headline"]}
+    # (c) the refusals: an int beyond the visible cards, a fault pack
+    visible = torch.cuda.device_count()
+    try:
+        run_sweep_workloads(grid[:1], workloads[:1], 2 * DAY,
+                            mode="rounds", device=device,
+                            devices=max(2, visible + 1))
+        raise AssertionError(f"devices={max(2, visible + 1)} did not "
+                             f"raise")
+    except ValueError as e:
+        if f"only {visible} CUDA device" not in str(e):
+            raise
+        out["devices_beyond_visible"] = str(e)
+    jobs, ws = cut(workloads[:1], 2 * DAY)[0]
+    sched = exponential_schedule(seed=7, n_nodes=16, mtbf=6 * 3600.0,
+                                 mttr=1800.0, duration=2 * DAY)
+    spec = roundslib.RoundsSpec(duration=2 * DAY, max_rounds=4096,
+                                window=roundslib.FB_ROUNDS_WINDOW)
+    pk = roundslib.pack_event_workloads(
+        [(jobs, ws)], 2 * DAY, spec.window, "fb", [3600.0], [135.0],
+        faults=[sched], device=device)
+    fb = FBGrid(capacity=torch.tensor([135.0], device=device),
+                lease=torch.tensor([3600.0], device=device))
+    try:
+        roundslib.rounds_grids(fb, None, pk, None, fb_spec=spec,
+                               devices=SHARDED_DEVICES)
+        raise AssertionError("a fault pack with devices did not raise")
+    except NotImplementedError as e:
+        out["fault_pack"] = str(e)
+    # (d) the DTensor train step on a one-rank nccl group
+    with one_rank_layout() as layout:
+        train = {}
+        for arch in SHARDED_TRAIN:
+            cfg = reduced_config(get_config(arch))
+            jc = TrainJobConfig(arch=arch, steps=SHARDED_STEPS, batch=4,
+                                seq_len=64, lr=1e-3, accum_steps=2)
+            t0 = time.time()
+            plain = TrainJob(cfg, jc, device)
+            plain.run()
+            plain_s = time.time() - t0
+            t0 = time.time()
+            job = TrainJob(cfg, jc, layout)
+            job.run()
+            mesh_s = time.time() - t0
+            if type(job.model.embed).__name__ != "DTensor":
+                raise AssertionError(f"{arch}: the layout's weights are "
+                                     f"not DTensors")
+            if job.history != plain.history:
+                raise AssertionError(f"{arch}: losses on the (1, 1) layout "
+                                     f"{job.history} != {plain.history}")
+            train[arch] = {"losses": job.history, "equal_bit_for_bit": True,
+                           "wall_s": mesh_s, "plain_wall_s": plain_s}
+        out["train_1x1"] = train
+    # (e) two ranks sharing the card: decided before running
+    missing = sorted(EF_ALLREDUCE_OPS - GLOO_CUDA_OPS)
+    out["two_rank"] = "cpu only" if missing else "run"
+    out["two_rank_refused_by_gloo_on_cuda"] = missing
+    out["nvidia_smi"] = smi
+    out["phase_wall_s"] = time.time() - t_phase
+    emit("sharded", **out)
+    return out
 
 
 def mean_of(cases, key):
@@ -3258,6 +3475,10 @@ def main() -> int:
              round_step_launches=hl_launches, outer_steps=hl_steps,
              wall_split=hl_split, **hl)
 
+    # --- more than one device, as far as one card shows it
+    walls["sweep"], walls["sweep_coalesced"] = sweep_s, coal_s
+    sharded_phase(device, smi, grid, workloads, big, rows, rows_c, walls)
+
     # --- the §6.6.4 FLB-NUB study: one jaxsim launch per study
     jaxsim = jaxsim_phase(device, smi)
 
@@ -3396,7 +3617,8 @@ def main() -> int:
     # config against the CPU, resume after a worker failure, and a live
     # training job preempted and resumed on the LiveCloud
     torch.cuda.empty_cache()
-    train_full_phase(device, smi)
+    plain = train_full_phase(device, smi)
+    sharded_train_full_phase(device, smi, plain)
     train_reduced_phase(device, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_resume_phase(device, smi, Path(tmp))

@@ -19,13 +19,14 @@ uses without x64), and float64 is an explicit request.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 __all__ = ["resolve_device", "resolve_backend", "resolve_pack_dtype",
-           "check_devices", "BACKENDS", "Device"]
+           "resolve_devices", "BACKENDS", "Device"]
 
 Device = Optional[Union[str, torch.device]]
 # "cuda": the hand-written kernels; "torch": their plain PyTorch versions.
@@ -86,12 +87,37 @@ def resolve_pack_dtype(dtype=None) -> np.dtype:
     return dt
 
 
-def check_devices(devices) -> None:
-    """The JAX package's ``devices=`` option shards sweep lanes across
-    devices. The port runs one device; the lane splitter over several
-    GPUs is a later slice, so anything but ``None`` / 1 raises."""
-    if devices is None or (isinstance(devices, int) and devices == 1):
-        return
-    raise NotImplementedError(
-        f"devices={devices!r}: the multi-GPU lane splitter is not ported "
-        f"yet (ROADMAP, queued work of the port); run on one device")
+def resolve_devices(devices) -> Optional[List[torch.device]]:
+    """The counterpart of ``repro.compat.resolve_devices``: a ``devices``
+    option as the list of devices the sweep's lanes are split across, or
+    ``None`` for the plain single-device path.
+
+    ``None``, ``1`` and a sequence of one device give ``None``. An int
+    ``n >= 2`` takes ``cuda:0`` … ``cuda:n-1`` and raises when fewer
+    cards are visible: nothing falls back to fewer devices than were
+    asked for. A sequence is resolved entry by entry through
+    :func:`resolve_device` (``"cpu"``, ``"cuda:1"``, ``torch.device``)
+    and may name a device more than once: the splitter issues no
+    collective, so two shards on one device simply run one after the
+    other (the way to drive it on the CPU or on a one-card machine)."""
+    if devices is None:
+        return None
+    if isinstance(devices, int):
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if devices == 1:
+            return None
+        visible = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if devices > visible:
+            raise ValueError(
+                f"devices={devices} requested but only {visible} CUDA "
+                f"device(s) visible (CUDA_VISIBLE_DEVICES="
+                f"{os.environ.get('CUDA_VISIBLE_DEVICES', '<unset>')}); "
+                f"pass a device list such as [\"cpu\", \"cpu\"] to split "
+                f"lanes over one device")
+        return [torch.device("cuda", i) for i in range(devices)]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices must be >= 1, got an empty sequence")
+    return devs if len(devs) > 1 else None

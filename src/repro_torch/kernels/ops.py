@@ -15,6 +15,14 @@ allocates, its output and scratch, and reports the kernel's FLOPs and
 bytes (``cost.report``) in place of a launch; flash decode, which cannot
 read a meta position, counts every key of the cache (within the window)
 as visible.
+
+On DTensors (a model on a mesh) each entry point runs per rank through
+``sharding.per_rank``: the batch over the batch axes (``"pod"``,
+``"data"``) and the heads over ``"model"`` where they divide, everything
+else whole.
+Inputs placed otherwise are redistributed first, as GSPMD would; the
+sequence of a batch-1 cache sharded over ``"data"`` is all-gathered
+before flash decode, which reads every key of a row.
 """
 
 from __future__ import annotations
@@ -28,14 +36,30 @@ from repro_torch.kernels import flash_decode as fdk
 from repro_torch.kernels.flash_attention import flash_attention_bkv
 from repro_torch.kernels.flash_decode import flash_decode_bkv
 from repro_torch.kernels.ssd_scan import ssd_scan_bh
+from repro_torch.sharding import (axes_of, batch_split, is_dtensor, per_rank,
+                                  split_axis)
 
 __all__ = ["flash_attention", "flash_decode", "fold_ssd", "ssd"]
+
+
+def _specs(x: torch.Tensor, heads: int):
+    """(the mesh axes of DTensor ``x``, the batch entry, the heads entry):
+    the batch over the batch axes and the heads over ``"model"`` where
+    ``x``'s batch and ``heads`` (the kv heads) divide them."""
+    ax = axes_of(x)
+    return ax, batch_split(ax, x.shape[0]), split_axis(ax, heads)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Model layout: q (b, s, h, hd); k/v (b, s, kv, hd) → (b, s, h, hd)."""
+    if is_dtensor(q):
+        ax, bt, hx = _specs(q, k.shape[2])
+        spec = (bt, None, hx, None)
+        return per_rank(lambda *t: flash_attention(
+            *t, causal=causal, window=window, softcap=softcap), ax,
+            (q, k, v), [spec] * 3, [spec])
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -62,6 +86,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  softcap: Optional[float] = None) -> torch.Tensor:
     """Serving layout: q (b, 1, h, hd); k/v cache (b, kv, s, hd); pos a
     scalar (int or 0-d tensor). Returns (b, 1, h, hd)."""
+    if is_dtensor(q):
+        ax, bt, hx = _specs(q, k_cache.shape[1])
+        cache = (bt, hx, None, None)
+        return per_rank(lambda *t: flash_decode(
+            *t, window=window, softcap=softcap), ax,
+            (q, k_cache, v_cache, pos),
+            [(bt, None, hx, None), cache, cache, None],
+            [(bt, None, hx, None)])
     b, _, h, hd = q.shape
     kv = k_cache.shape[1]
     g = h // kv
@@ -119,6 +151,16 @@ def ssd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """Model layout: x (b, l, h, p); a (b, l, h); B/C (b, l, g, n);
     init_state (b, h, p, n). Returns (y (b, l, h, p), state (b, h, p, n)
     in float32)."""
+    if is_dtensor(x):
+        ax, bt, hx = _specs(x, x.shape[2])
+        args = (x, a, B, C) + ((init_state,) if init_state is not None
+                               else ())
+        state = (bt, hx, None, None)
+        dims = [(bt, None, hx, None), (bt, None, hx),
+                (bt, None, None, None), (bt, None, None, None), state]
+        return per_rank(lambda *t: ssd(
+            *t[:4], init_state=t[4] if len(t) > 4 else None, chunk=chunk),
+            ax, args, dims[:len(args)], [(bt, None, hx, None), state])
     b, l, h, p = x.shape
     xf, af, Bh, Ch, s0 = fold_ssd(x, a, B, C, init_state)
     if x.device.type == "meta":

@@ -1,5 +1,5 @@
-"""(architecture × input shape) cells on one card: the counterpart of
-``repro.launch.cells``.
+"""(architecture × input shape) cells on one card or a layout of
+several: the counterpart of ``repro.launch.cells``.
 
 The reference stands in ``ShapeDtypeStruct``s for every input, jits the
 cell's entry point (train step, prefill or serve step) with shardings
@@ -11,11 +11,21 @@ check the dry run against it.
 * ``input_specs``: the data inputs of a cell as meta tensors, with the
   reference's shapes and dtypes.
 * ``build_cell``: the cell's model, arguments and step on a one-card
-  layout (``mesh.make_local_mesh``).
+  layout (``mesh.make_local_mesh``), or on a layout of several cards
+  (``mesh.make_mesh`` / ``make_production_mesh``): weights, optimizer
+  state, cache and batch are DTensors placed by the sharding specs
+  (``Model.param_specs``, ``Optimizer.state_specs``,
+  ``Model.cache_pspecs``, ``trainer.batch_pspecs``), the counterpart of
+  the reference's ``in_shardings``. Under PyTorch's ``fake`` process
+  group on the meta device one process stands for every rank.
 * ``count_cell`` (the reference's ``lower_cell``): runs the cell once
   under ``CostCounter``, which counts every aten op's FLOPs and bytes
   and each kernel route's (``kernels/cost.py``), and follows every
-  storage's life to forecast the peak memory of the step.
+  storage's life to forecast the peak memory of the step. On a layout
+  of several cards it counts one rank's local program (a DTensor op is
+  let through, so the counter sees the local ops it becomes, and the
+  collectives DTensor issues, ``hlo_analysis.Collectives``): per-card
+  FLOPs, bytes, peak memory and collective bytes.
 * ``analytic_cost``: the reference's global FLOPs and bytes of a cell,
   counted at full depth on the plain path.
 
@@ -43,10 +53,12 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec, get_config
 from repro_torch.kernels import cost as kcost
+from repro_torch.launch.hlo_analysis import Collectives, LocalOnly
 from repro_torch.launch.mesh import Layout, make_local_mesh
+from repro_torch.models.common import placed_empty
 from repro_torch.models.transformer import FRONTEND_FAMILIES, Model
 from repro_torch.train.optimizer import get_optimizer, tree_map
-from repro_torch.train.trainer import make_train_step
+from repro_torch.train.trainer import batch_pspecs, make_train_step
 
 __all__ = ["Cell", "CostCounter", "input_specs", "build_cell", "count_cell",
            "analytic_cost", "LR", "COUNTED_MICROBATCHES"]
@@ -149,6 +161,8 @@ class CostCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._storages: Dict[int, int] = {}
+        self.collectives = Collectives()
+        self._local = LocalOnly()
 
     # -------------------------------------------------------- live memory
 
@@ -191,11 +205,14 @@ class CostCounter(TorchDispatchMode):
 
     def __enter__(self):
         kcost.sinks.append(self._kernel)
+        self._local.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         kcost.sinks.remove(self._kernel)
-        return super().__exit__(*exc)
+        out = super().__exit__(*exc)
+        self._local.__exit__(*exc)
+        return out
 
     def _flops(self, func, name, args, kwargs, out,
                outs) -> Tuple[str, float, float]:
@@ -242,6 +259,10 @@ class CostCounter(TorchDispatchMode):
         return sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            # Let DTensor run first: the counter sees the local ops and
+            # collectives it becomes, with each rank's shapes.
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if func is torch.ops.aten.lift_fresh.default:
@@ -253,6 +274,7 @@ class CostCounter(TorchDispatchMode):
         for t in outs:
             self._track(t)
         if self.counting:
+            self.collectives.record(func, args, out)
             name = _name(func)
             self.ops += 1
             kind, f, tr = self._flops(func, name, args, kwargs, out, outs)
@@ -301,11 +323,26 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
 
 
 def _inputs(cfg: ArchConfig, shape: ShapeSpec, device: torch.device,
-            compute_dtype, gen: Optional[torch.Generator]):
+            compute_dtype, gen: Optional[torch.Generator], model=None):
     """``input_specs`` on ``device``: random tokens and frontend from
-    ``gen`` (written in place, no temporaries), storage only on meta."""
+    ``gen`` (written in place, no temporaries), storage only on meta.
+    For a ``model`` on a mesh each input is a DTensor placed by
+    ``trainer.batch_pspecs`` (rows over the batch axes where they
+    divide), holding this rank's rows only."""
     out = {}
     for name, sp in input_specs(cfg, shape, compute_dtype).items():
+        if model is not None and model.mesh is not None:
+            ax = model.ax
+            spec = ax.spec(batch_pspecs(cfg, ax).get(
+                name, (ax.batch_axes,) + (None,) * (len(sp.shape) - 1)),
+                sp.shape)
+            t = placed_empty(sp.shape, sp.dtype, device, ax.mesh,
+                             ax.placements(spec))
+            if gen is not None:
+                raise NotImplementedError(
+                    "random inputs on a mesh: the cell runs on meta")
+            out[name] = t
+            continue
         t = torch.empty(sp.shape, dtype=sp.dtype, device=device)
         if gen is not None:
             if t.dtype == torch.int32:
@@ -334,26 +371,41 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout] = None,
                global_batch: Optional[int] = None,
                seq_len: Optional[int] = None, impl: Optional[str] = None,
                cfg: Optional[ArchConfig] = None) -> Cell:
-    """The cell on a one-card ``layout`` (default: the card). Train:
-    float32 weights, the config's optimizer and ``accum = gb //
-    min(microbatch, gb)`` micro-batches through ``make_train_step``;
-    prefill and decode: bfloat16 weights and a bfloat16 cache of
-    ``seq_len``, decode at its last position. ``global_batch`` and
-    ``seq_len`` cut the shape, ``cfg`` replaces the config (a reduced
-    one), ``impl`` the model's default for prefill and decode (the
-    kernels on the card and on meta); train runs ``impl="torch"``, the
-    path the trainer differentiates. Weights and data are random from
-    ``SEED`` off the meta device."""
+    """The cell on ``layout`` (default: the card). Train: float32
+    weights, the config's optimizer and ``accum = gb // min(microbatch,
+    gb)`` micro-batches through ``make_train_step``; prefill and decode:
+    bfloat16 weights and a bfloat16 cache of ``seq_len``, decode at its
+    last position. ``global_batch`` and ``seq_len`` cut the shape,
+    ``cfg`` replaces the config (a reduced one), ``impl`` the model's
+    default for prefill and decode (the kernels on the card and on
+    meta); train runs ``impl="torch"``, the path the trainer
+    differentiates. Weights and data are random from ``SEED`` off the
+    meta device.
+
+    A layout of several cards (one with a ``DeviceMesh``) places
+    weights, optimizer state, cache and batch by their specs, and the
+    train step pins the gradients to the weights' placements
+    (``grad_pspecs``); such a cell runs on the meta device. The
+    micro-batches are the config's, consecutive global rows placed by
+    ``batch_pspecs`` (``trainer._micro_batches``): where one has fewer
+    rows than there are batch ranks (jamba's and llama-vision's 8 on 16)
+    it is whole on each rank, as in the reference. A layout with no
+    devices (a description) raises."""
     cfg = cfg or get_config(arch)
     shape = cfg.shapes()[shape_name]
     if shape.skip:
         return Cell(arch, shape_name, shape.kind, skip=shape.skip)
     layout = layout or make_local_mesh()
-    if layout.size != 1 or layout.device is None:
-        raise NotImplementedError(
-            f"layout {layout.shape}: a cell runs on one card; layouts of "
-            f"more than one need the sharding specs (ROADMAP A3)")
+    if layout.device is None:
+        raise ValueError(
+            f"layout {layout.shape} has no devices: it needs a process "
+            f"group of {layout.size} ranks (the dry run's fake group)")
+    if layout.size != 1 and layout.mesh is None:
+        raise ValueError(f"layout {layout.shape} of {layout.size} cards "
+                         f"has no DeviceMesh")
+    sharded = layout.mesh is not None
     device = layout.device
+    where = layout if sharded else device
     gb = global_batch or shape.global_batch
     shape = dataclasses.replace(shape, global_batch=gb,
                                 seq_len=seq_len or shape.seq_len)
@@ -372,7 +424,7 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout] = None,
 
         def build_train(accum_steps: int = accum):
             gen = generator()
-            model = Model(cfg, device, impl="torch",
+            model = Model(cfg, where, impl="torch",
                           compute_dtype=compute_dtype,
                           param_dtype=torch.float32)
             _fill(model, gen)
@@ -380,21 +432,30 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout] = None,
             opt = get_optimizer(cfg.optimizer)
             params = model.params()
             state = opt.init(params)
-            batch = _inputs(cfg, shape, device, compute_dtype, gen)
-            if accum_steps != accum:
-                batch = {k: v[:accum_steps * mb] for k, v in batch.items()}
-            step = make_train_step(model, opt, accum_steps)
+            if sharded:
+                # Only the micro-batches counted.
+                batch = _inputs(cfg, dataclasses.replace(
+                    shape, global_batch=accum_steps * mb), device,
+                    compute_dtype, gen, model)
+            else:
+                batch = _inputs(cfg, shape, device, compute_dtype, gen)
+                if accum_steps != accum:
+                    batch = {k: v[:accum_steps * mb]
+                             for k, v in batch.items()}
+            step = make_train_step(model, opt, accum_steps,
+                                   grad_pspecs=model.param_specs()
+                                   if sharded else None)
             return model, step, (params, state, batch, LR)
 
         return Cell(arch, shape_name, "train", build_train, accum=accum)
 
     def build_serve(accum_steps: int = 1):
         gen = generator()
-        model = Model(cfg, device, impl=impl, compute_dtype=compute_dtype,
+        model = Model(cfg, where, impl=impl, compute_dtype=compute_dtype,
                       param_dtype=torch.bfloat16)
         _fill(model, gen)
         cache = model.init_cache(gb, s, dtype=torch.bfloat16)
-        batch = _inputs(cfg, shape, device, compute_dtype, gen)
+        batch = _inputs(cfg, shape, device, compute_dtype, gen, model)
         if shape.kind == "prefill":
             return model, model.prefill, (batch, cache)
 
@@ -454,6 +515,7 @@ def count_cell(cell: Cell) -> Dict:
         del out, t, args, step, model
     flops = c.products + c.elementwise + c.kernel_flops
     return {"flops": flops, "products": c.products,
+            "collectives": c.collectives.result(),
             "elementwise": c.elementwise, "kernel_flops": c.kernel_flops,
             "transcendentals": c.transcendentals, "bytes": c.bytes,
             "ops": c.ops, "kernel_launches": dict(c.kernels),

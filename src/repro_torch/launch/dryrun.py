@@ -15,30 +15,48 @@ semantics (the plain path, dense global attention) for the roofline
 row, as the reference's analytic path overrides XLA's per-device counts.
 
 The reference lowers against its TPU pod meshes (16 × 16 and 2 × 16 ×
-16 chips). The port runs the one-card layout only: per-card memory and
-collective bytes under a pod layout need the parameter, cache and batch
-sharding specs (the reference's ``param_specs``, ``cache_pspecs`` and
-``batch_pspecs``), which the port does not have yet (ROADMAP A3), so
-``--multi-pod`` raises ``NotImplementedError``.
+16 chips). The default here is one H100 (``dryrun_card.json``);
+``--layout pod`` takes the reference's 16 × 16 layout of 256 cards
+(``dryrun_singlepod.json``) and ``--multi-pod`` its 2 × 16 × 16 of 512
+(``dryrun_multipod.json``). A pod layout runs in one process through
+PyTorch's ``fake`` process group on the meta device: one rank stands
+for every rank, weights, optimizer state, cache and batch are DTensors
+placed by the sharding specs, and the counters see that rank's local
+program. Each cell then records per-card FLOPs, bytes and forecast
+peak, and the collective bytes by kind with the link time (NVLink 4
+within an 8-card node, the network across nodes; ``hlo_analysis``).
+
+``--workers N`` runs the architectures in ``N`` processes of this
+module at once (each with its own ``fake`` group), merges their records
+into the one file and prints each shape's per-card forecast peak, the
+per-card collective bytes and the bottleneck, one row per architecture.
 
 Usage (on the CPU: nothing is allocated and nothing needs a card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
-        [--arch gemma2_2b] [--shape train_4k] [--out results/]
+        [--layout card|pod] [--multi-pod] [--arch gemma2_2b] \\
+        [--shape train_4k] [--out results/] [--workers 8]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import subprocess
+import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
+
+import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.cells import analytic_cost, build_cell, count_cell
-from repro_torch.launch.mesh import Layout, make_local_mesh
+from repro_torch.launch.mesh import (Layout, make_local_mesh,
+                                     make_production_mesh)
 
 __all__ = ["SHAPES", "run_cell", "main"]
 
@@ -49,8 +67,10 @@ def run_cell(arch: str, shape_name: str, layout: Layout,
              chips: int = 1) -> dict:
     cfg = get_config(arch)
     shape = cfg.shapes()[shape_name]
+    # DTensor's choice of collectives (and so a pod cell's collective
+    # bytes) changes between PyTorch releases: each record names its own.
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind,
-           "chips": chips, "status": None}
+           "chips": chips, "torch": torch.__version__, "status": None}
     t0 = time.time()
     try:
         cell = build_cell(arch, shape_name, layout)
@@ -67,6 +87,7 @@ def run_cell(arch: str, shape_name: str, layout: Layout,
             flops_override=ana.get("flops"),
             bytes_override=ana.get("bytes"))
         rec.update(roof.row())
+        rec["collectives"] = counted["collectives"]
         rec["analytic"] = ana
         rec["forecast"] = {k: v for k, v in counted.items()
                            if k != "memory_analysis"}
@@ -84,18 +105,125 @@ def run_cell(arch: str, shape_name: str, layout: Layout,
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's 2 x 16 x 16 layout (512 cards)")
+    ap.add_argument("--layout", choices=("card", "pod"), default="card",
+                    help="one H100, or the reference's 16 x 16 pod")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--out", default="results")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="architectures run at once, one process each")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the dry run runs the one-card layout; pod "
-            "layouts need the sharding specs (ROADMAP A3)")
+    if args.workers > 1 and not args.arch:
+        return _parallel(args)
+    if args.multi_pod or args.layout == "pod":
+        with _fake_group(512 if args.multi_pod else 256):
+            layout = make_production_mesh(multi_pod=args.multi_pod)
+            return _grid(args, layout, _tag(args))
+    return _grid(args, make_local_mesh("meta"), "card")
 
-    layout = make_local_mesh("meta")
-    tag = "card"
+
+@contextlib.contextmanager
+def _fake_group(world: int):
+    """PyTorch's ``fake`` process group of ``world`` ranks in this
+    process (rank 0 stands for all), torn down on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _tag(args) -> str:
+    return "multipod" if args.multi_pod else \
+        "singlepod" if args.layout == "pod" else "card"
+
+
+def _parallel(args) -> list:
+    """Every architecture in its own process of this module, ``workers``
+    at a time, each writing under ``<out>/<tag>_parts/<arch>``; the
+    records merged into ``<out>/dryrun_<tag>.json`` (cells already ``ok``
+    there are kept, as a rerun resumes) and the per-card table
+    printed."""
+    tag = _tag(args)
+    path = os.path.join(args.out, f"dryrun_{tag}.json")
+    parts = os.path.join(args.out, f"{tag}_parts")
+    os.makedirs(parts, exist_ok=True)
+    done = []
+    if os.path.exists(path):
+        with open(path) as f:
+            done = [r for r in json.load(f) if r["status"] == "ok"]
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    todo = [a for a in ARCH_IDS
+            if sum(r["arch"] == a for r in done) < len(shapes)]
+    flags = ["--multi-pod"] if args.multi_pod else ["--layout", args.layout]
+    flags += ["--shape", args.shape] if args.shape else []
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+    def run(arch):
+        out = os.path.join(parts, arch)
+        with open(out + ".log", "w") as log:
+            subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *flags, "--arch", arch, "--out", out],
+                           stdout=log, stderr=subprocess.STDOUT, env=env,
+                           check=False)
+
+    t0 = time.time()
+    with ThreadPoolExecutor(args.workers) as pool:
+        list(pool.map(run, todo))
+    results = [r for r in done if r["arch"] not in todo]
+    for arch in todo:
+        part = os.path.join(parts, arch, f"dryrun_{tag}.json")
+        if os.path.exists(part):
+            with open(part) as f:
+                results += json.load(f)
+        else:
+            results += [{"arch": arch, "shape": sh, "status": "fail",
+                         "error": "no record"} for sh in shapes]
+    order = {a: i for i, a in enumerate(ARCH_IDS)}
+    results.sort(key=lambda r: (order[r["arch"]], SHAPES.index(r["shape"])))
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1)
+    by = {(r["arch"], r["shape"]): r for r in results}
+    print("| arch | " + " | ".join(shapes) + " |")
+    print("|---|" + "---|" * len(shapes))
+    for arch in ARCH_IDS:
+        print(f"| {arch} | " + " | ".join(
+            _cell_text(by.get((arch, sh))) for sh in shapes) + " |")
+    _summary(results, tag, path)
+    print(f"[{tag}] wall {time.time() - t0:.1f} s, {args.workers} workers")
+    return results
+
+
+def _cell_text(rec: Optional[dict]) -> str:
+    """A table cell: forecast peak GiB / collective GiB, bottleneck."""
+    if rec is None or rec["status"] == "fail":
+        return "FAIL"
+    if rec["status"] == "skip":
+        return "skip"
+    gib = 2 ** 30
+    return (f"{rec['forecast']['peak_bytes'] / gib:.1f} / "
+            f"{rec['coll_bytes'] / gib:.2f}, {rec['bottleneck'][:4]}")
+
+
+def _summary(results: list, tag: str, path: str) -> None:
+    ok = sum(r["status"] == "ok" for r in results)
+    skip = sum(r["status"] == "skip" for r in results)
+    fail = sum(r["status"] == "fail" for r in results)
+    print(f"[{tag}] done: {ok} ok / {skip} skip / {fail} fail → {path}")
+
+
+def _grid(args, layout: Layout, tag: str) -> list:
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
 
@@ -120,16 +248,14 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             if status == "ok":
                 extra = (f"{rec['hlo_flops']:.3e} FLOP  "
                          f"{rec['forecast']['peak_bytes'] / 2**30:9.1f} GiB "
+                         f"{rec['coll_bytes'] / 2**30:8.2f} GiB coll "
                          f"{rec['bottleneck']:8s} fits {rec['fits_card']}")
             print(f"[{tag}] {arch:22s} {shape:12s} {status:5s} "
                   f"{rec['seconds']:7.1f}s  {extra[:80]}", flush=True)
             with open(path, "w") as f:
                 json.dump(results, f, indent=1)
 
-    ok = sum(r["status"] == "ok" for r in results)
-    skip = sum(r["status"] == "skip" for r in results)
-    fail = sum(r["status"] == "fail" for r in results)
-    print(f"[{tag}] done: {ok} ok / {skip} skip / {fail} fail → {path}")
+    _summary(results, tag, path)
     return results
 
 

@@ -27,11 +27,13 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import (KeyGen, normal_init, promote,
-                                       rope, upcast)
+from repro_torch.models.common import (AxisSizes, KeyGen, assign_, axes_of,
+                                       batch_split, is_dtensor, normal_init,
+                                       per_rank, promote, rope, split_axis,
+                                       upcast, write_rows_)
 from repro_torch.models.common import softcap as _softcap
 
-__all__ = ["NEG_INF", "attn_shapes", "init_attn", "attend_full",
+__all__ = ["NEG_INF", "attn_shapes", "attn_specs", "init_attn", "attend_full",
            "attend_cross", "cache_shapes", "init_cache", "prefill_attn", "decode_attn",
            "decode_cross_attn", "fill_cross_cache"]
 
@@ -54,6 +56,22 @@ def init_attn(kg: KeyGen, cfg: ArchConfig, dtype=torch.float32,
     return {name: (normal_init(kg(), shape, std, dtype, device) if std
                    else torch.zeros(shape, dtype=dtype, device=device))
             for name, (shape, std) in attn_shapes(cfg).items()}
+
+
+def attn_specs(cfg: ArchConfig, ax: AxisSizes) -> Dict:
+    """The reference's parameter specs of one attention layer."""
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    s = {
+        "wq": ax.spec(("data", "model", None), (d, h, hd)),
+        "wk": ax.spec(("data", "model", None), (d, k, hd)),
+        "wv": ax.spec(("data", "model", None), (d, k, hd)),
+        "wo": ax.spec(("model", None, "data"), (h, hd, d)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ax.spec(("model", None), (h, hd))
+        s["bk"] = ax.spec(("model", None), (k, hd))
+        s["bv"] = ax.spec(("model", None), (k, hd))
+    return s
 
 
 def _project_qkv(p: Dict, xq: torch.Tensor, xkv: torch.Tensor,
@@ -154,10 +172,87 @@ def _sdpa_auto(q, k, v, cfg, window, causal):
     return _sdpa(q, k, v, cfg, mask)
 
 
+# ------------------------------------------------------ per rank on a mesh
+#
+# On DTensors each attention function runs per rank (``common.per_rank``):
+# the rows over the batch axes, the heads over "model" where the kv
+# heads divide it (query heads then divide too, and each rank keeps whole
+# GQA groups), everything else whole. The weights' "data" sharding is
+# all-gathered at use, and the output projection's result is each rank's
+# partial sum over "model". DTensor's own rules for the projections'
+# einsums fail on the (b·s)-folded views of large cells.
+
+_HEADS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
+
+
+def _split(x, cfg: ArchConfig):
+    ax = axes_of(x)
+    return ax, batch_split(ax, x.shape[0]), split_axis(ax, cfg.n_kv_heads)
+
+
+def _weight_dims(p: Dict, names, hx):
+    return [tuple(hx if i == _HEADS[n] else None
+                  for i in range(p[n].dim())) for n in names]
+
+
+def _with_weights(fn, p: Dict, names):
+    """``fn(*tensors, p_local)`` from ``(*tensors, *weights)``."""
+    k = len(names)
+    return lambda *a: fn(*a[:-k], dict(zip(names, a[-k:]))) if k else \
+        fn(*a, {})
+
+
+def _qkv_names(cfg: ArchConfig, which: str = "qkv"):
+    out = [f"w{c}" for c in which]
+    if cfg.qkv_bias:
+        out += [f"b{c}" for c in which]
+    return out
+
+
+def _project_per_rank(p, x, cfg, pos, use_rope=True, src=None):
+    """q, k, v DTensors (rows over the batch axes, heads over "model"),
+    projected per rank; k / v from ``src`` when given."""
+    ax, bt, hx = _split(x, cfg)
+    names = _qkv_names(cfg)
+    kv_in = x if src is None else src
+
+    def body(xq, xkv, w):
+        return _project_qkv(w, xq, xkv, cfg, pos, pos, use_rope)
+
+    head = (bt, None, hx, None)
+    return per_rank(_with_weights(body, p, names), ax,
+                    (x, kv_in, *[p[n] for n in names]),
+                    [(bt, None, None)] * 2 + _weight_dims(p, names, hx),
+                    [head] * 3)
+
+
+def _out_per_rank(fn, p, x, cfg, tensors, dims):
+    """``_out_proj(fn(*local tensors), wo)`` per rank: each rank's
+    partial sum over "model" where the heads are split."""
+    ax, bt, hx = _split(x, cfg)
+
+    def body(*a):
+        *t, w = a
+        return _out_proj(fn(*t), {"wo": w})
+
+    return per_rank(body, ax, (*tensors, p["wo"]),
+                    list(dims) + _weight_dims(p, ["wo"], hx),
+                    [(bt, None, None)], partial=[hx])
+
+
 def attend_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, local: bool,
                 impl: str = "torch", causal: bool = True) -> torch.Tensor:
     """Training / prefill self-attention over the whole sequence.
     ``causal=False`` gives the bidirectional encoder variant."""
+    if is_dtensor(x):
+        ax, bt, hx = _split(x, cfg)
+        names = sorted(p)
+        return per_rank(
+            _with_weights(lambda x_, w: attend_full(w, x_, cfg, local, impl,
+                                                    causal), p, names),
+            ax, (x, *[p[n] for n in names]),
+            [(bt, None, None)] + _weight_dims(p, names, hx),
+            [(bt, None, None)], partial=[hx])
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, x, cfg, pos, pos, use_rope=True)
@@ -175,6 +270,15 @@ def attend_cross(p: Dict, x: torch.Tensor, src: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """Cross-attention to frontend / encoder embeddings ``src`` (b, F, d):
     no mask, no rope."""
+    if is_dtensor(x):
+        ax, bt, hx = _split(x, cfg)
+        names = sorted(p)
+        return per_rank(
+            _with_weights(lambda x_, s_, w: attend_cross(w, x_, s_, cfg), p,
+                          names),
+            ax, (x, src, *[p[n] for n in names]),
+            [(bt, None, None)] * 2 + _weight_dims(p, names, hx),
+            [(bt, None, None)], partial=[hx])
     q, k, v = _project_qkv(p, x, src, cfg, None, None, use_rope=False)
     return _out_proj(_sdpa(q, k, v, cfg, mask=None), p)
 
@@ -232,6 +336,24 @@ def prefill_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
                  ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention that also fills the KV cache (rows
     ``[0, s)``, in place)."""
+    window = cfg.sliding_window if local else None
+    if is_dtensor(x):
+        pos = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _project_per_rank(p, x, cfg, pos)
+        write_rows_(cache["k"], k.permute(0, 2, 1, 3), 0)
+        write_rows_(cache["v"], v.permute(0, 2, 1, 3), 0)
+
+        def attend(q_, k_, v_):
+            if impl == "cuda":
+                from repro_torch.kernels import ops as kops
+                return kops.flash_attention(q_, k_, v_, causal=True,
+                                            window=window,
+                                            softcap=cfg.attn_softcap)
+            return _sdpa_auto(q_, k_, v_, cfg, window, causal=True)
+
+        _, bt, hx = _split(x, cfg)
+        return _out_per_rank(attend, p, x, cfg, (q, k, v),
+                             [(bt, None, hx, None)] * 3), cache
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, x, cfg, pos, pos, use_rope=True)
@@ -243,8 +365,12 @@ def prefill_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     else:
         out = _sdpa_auto(q, k, v, cfg, window, causal=True)
     # One transpose into the decode-native (b, kv, t, hd) layout.
-    cache["k"][:, :, :s] = k.permute(0, 2, 1, 3)
-    cache["v"][:, :, :s] = v.permute(0, 2, 1, 3)
+    if is_dtensor(cache["k"]):
+        write_rows_(cache["k"], k.permute(0, 2, 1, 3), 0)
+        write_rows_(cache["v"], v.permute(0, 2, 1, 3), 0)
+    else:
+        cache["k"][:, :, :s] = k.permute(0, 2, 1, 3)
+        cache["v"][:, :, :s] = v.permute(0, 2, 1, 3)
     return _out_proj(out, p), cache
 
 
@@ -266,13 +392,36 @@ def decode_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     max_len = cache["k"].shape[2]
     window = cfg.sliding_window if local else None
     at = torch.clamp(pos, max=max_len - 1)
+    if is_dtensor(x):
+        if pos.dim() != 0:
+            raise NotImplementedError(
+                "per-row decode positions on a mesh: the serving engine's "
+                "slots run on one device")
+        q, k_new, v_new = _project_per_rank(p, x, cfg, pos[None])
+        write_rows_(cache["k"], k_new.permute(0, 2, 1, 3), at)
+        write_rows_(cache["v"], v_new.permute(0, 2, 1, 3), at)
+
+        def read(q_, kc, vc):
+            if impl == "cuda":
+                from repro_torch.kernels import ops as kops
+                return kops.flash_decode(q_, kc, vc, at, window=window,
+                                         softcap=cfg.attn_softcap)
+            cols = torch.arange(max_len, device=q_.device)
+            valid = cols <= at
+            if window is not None:
+                valid &= cols > at - window
+            return _sdpa_cached(q_, kc, vc, cfg,
+                                valid[None, None, None, None, :])
+
+        _, bt, hx = _split(x, cfg)
+        return _out_per_rank(read, p, x, cfg, (q, cache["k"], cache["v"]),
+                             [(bt, None, hx, None), (bt, hx, None, None),
+                              (bt, hx, None, None)]), cache
     if pos.dim() == 0:
         q, k_new, v_new = _project_qkv(p, x, x, cfg, pos[None], pos[None],
                                        use_rope=True)
-        cache["k"].index_copy_(2, at.reshape(1),
-                               k_new.permute(0, 2, 1, 3).to(cache["k"].dtype))
-        cache["v"].index_copy_(2, at.reshape(1),
-                               v_new.permute(0, 2, 1, 3).to(cache["v"].dtype))
+        write_rows_(cache["k"], k_new.permute(0, 2, 1, 3), at)
+        write_rows_(cache["v"], v_new.permute(0, 2, 1, 3), at)
         if impl == "cuda":
             from repro_torch.kernels import ops as kops
             out = kops.flash_decode(q, cache["k"], cache["v"], at,
@@ -302,6 +451,16 @@ def decode_cross_attn(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                       cache: Dict) -> torch.Tensor:
     """Cross-attention during decode: K/V read from the ``ck`` / ``cv``
     cache that ``fill_cross_cache`` wrote at prefill."""
+    if is_dtensor(x):
+        ax, bt, hx = _split(x, cfg)
+        names = _qkv_names(cfg, "q") + ["wo"]
+        return per_rank(
+            _with_weights(lambda x_, ck, cv, w: decode_cross_attn(
+                w, x_, cfg, {"ck": ck, "cv": cv}), p, names),
+            ax, (x, cache["ck"], cache["cv"], *[p[n] for n in names]),
+            [(bt, None, None)] + [(bt, hx, None, None)] * 2
+            + _weight_dims(p, names, hx),
+            [(bt, None, None)], partial=[hx])
     q = torch.einsum("bsd,dhk->bshk", *promote(x, p["wq"]))
     if cfg.qkv_bias:
         q = q + p["bq"]
@@ -314,10 +473,28 @@ def fill_cross_cache(p: Dict, src: torch.Tensor, cfg: ArchConfig,
     """Project ``src`` (b, F, d) to K/V and write them, in the cache's
     dtype and the decode-native layout, over ``cache["ck"]`` /
     ``cache["cv"]`` (in place)."""
+    if is_dtensor(src):
+        ax, bt, hx = _split(src, cfg)
+        names = _qkv_names(cfg, "kv")
+
+        def body(s_, w):
+            k_ = torch.einsum("btd,dmk->btmk", *promote(s_, w["wk"]))
+            v_ = torch.einsum("btd,dmk->btmk", *promote(s_, w["wv"]))
+            if cfg.qkv_bias:
+                k_, v_ = k_ + w["bk"], v_ + w["bv"]
+            return k_, v_
+
+        k, v = per_rank(_with_weights(body, p, names), ax,
+                        (src, *[p[n] for n in names]),
+                        [(bt, None, None)] + _weight_dims(p, names, hx),
+                        [(bt, None, hx, None)] * 2)
+        assign_(cache["ck"], k.permute(0, 2, 1, 3))
+        assign_(cache["cv"], v.permute(0, 2, 1, 3))
+        return cache
     k = torch.einsum("btd,dmk->btmk", *promote(src, p["wk"]))
     v = torch.einsum("btd,dmk->btmk", *promote(src, p["wv"]))
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    cache["ck"].copy_(k.permute(0, 2, 1, 3))
-    cache["cv"].copy_(v.permute(0, 2, 1, 3))
+    assign_(cache["ck"], k.permute(0, 2, 1, 3))
+    assign_(cache["cv"], v.permute(0, 2, 1, 3))
     return cache

@@ -1,9 +1,12 @@
-"""Shared model utilities: norms, RoPE, softcap, the training loss and
-initialisation.
+"""Shared model utilities: norms, RoPE, softcap, the training loss,
+initialisation and the sharding rules.
 
-The counterparts of ``repro.models.common``. The JAX module's sharding
-helpers (``AxisSizes``, ``shard``) have no counterpart: the port runs a
-model on one card (the device mesh is ROADMAP A3).
+The counterparts of ``repro.models.common``.
+
+The sharding rules (``AxisSizes``, ``shard``, ``per_rank`` and the
+collective helpers) live in ``repro_torch.sharding``, below both
+``models`` and ``kernels``, and are re-exported here under the
+reference's module.
 
 Where the reference computes in float32 (norms, softcap, RoPE's angles,
 the loss), the port computes in ``upcast(dtype)``: float32 for bfloat16
@@ -17,7 +20,16 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-__all__ = ["rms_norm", "rms_norm_gated", "rope", "softcap", "normal_init",
+from repro_torch.sharding import (  # noqa: F401  (re-exported)
+    AxisSizes, all_reduce_both, all_reduce_bwd, all_reduce_fwd, assign_,
+    axes_of, batch_split, contiguous_strides, entry, is_dtensor, per_rank,
+    placed_empty, placed_zeros, settled, shard, split_axis, write_rows_)
+
+__all__ = ["AxisSizes", "entry", "shard", "settled", "is_dtensor", "contiguous_strides",
+           "axes_of", "split_axis", "batch_split", "per_rank",
+           "all_reduce_fwd", "all_reduce_bwd", "all_reduce_both",
+           "placed_empty", "placed_zeros", "assign_", "write_rows_",
+           "rms_norm", "rms_norm_gated", "rope", "softcap", "normal_init",
            "KeyGen", "promote", "upcast", "cross_entropy_loss"]
 
 
@@ -39,18 +51,27 @@ def promote(*xs: torch.Tensor):
 # --------------------------------------------------------------------- norms
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, group=None) -> torch.Tensor:
+    """``group``: the last dimension is split over that group's ranks
+    (per-rank code); the mean of squares is summed over it."""
     dtype = x.dtype
     x = x.to(upcast(dtype))
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if group is None:
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        import torch.distributed as dist
+        n = x.shape[-1] * dist.get_world_size(group)
+        ms = all_reduce_both(torch.sum(x * x, dim=-1, keepdim=True),
+                             group) / n
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + w.to(x.dtype))).to(dtype)
 
 
 def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, group=None) -> torch.Tensor:
     """Mamba2's gated RMSNorm: norm(x * silu(z))."""
     return rms_norm(x * torch.nn.functional.silu(z.float()).to(x.dtype), w,
-                    eps)
+                    eps, group)
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -108,6 +129,11 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy; logits (..., V), labels (...) integer."""
+    if is_dtensor(logits):
+        # The vocabulary whole on each rank: DTensor's rule for a gather
+        # along a sharded dimension (a masked partial) fails here.
+        logits = logits.redistribute(
+            placements=_unsharded_along(logits, logits.dim() - 1))
     logits = logits.to(upcast(logits.dtype))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

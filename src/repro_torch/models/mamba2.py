@@ -33,10 +33,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import (KeyGen, normal_init, promote,
-                                       rms_norm_gated)
+from repro_torch.models.common import (AxisSizes, KeyGen, assign_, axes_of,
+                                       batch_split, is_dtensor, normal_init,
+                                       per_rank, promote, rms_norm_gated,
+                                       split_axis)
 
 __all__ = ["CHUNK", "N_GROUPS", "F32_PARAMS", "dims", "mamba_shapes",
+           "mamba_specs",
            "init_mamba", "ssd_chunked", "mamba_full", "mamba_cache_shapes",
            "init_mamba_cache",
            "mamba_prefill", "mamba_decode"]
@@ -72,6 +75,26 @@ def mamba_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...],
             "A_log": ((nh,), None), "D": ((nh,), None),
             "dt_bias": ((nh,), None), "norm_w": ((d_inner,), None),
             "wo": ((d_inner, d), d_inner ** -0.5)}
+
+
+def mamba_specs(cfg: ArchConfig, ax: AxisSizes) -> Dict:
+    """The reference's parameter specs of one Mamba2 layer."""
+    d = cfg.d_model
+    d_inner, nh, n = dims(cfg)
+    gbc = 2 * N_GROUPS * n
+    return {
+        "wz": ax.spec(("data", "model"), (d, d_inner)),
+        "wx": ax.spec(("data", "model"), (d, d_inner)),
+        "wbc": ax.spec(("data", None), (d, gbc)),
+        "wdt": ax.spec(("data", "model"), (d, nh)),
+        "conv_x": ax.spec((None, "model"), (cfg.ssm_conv, d_inner)),
+        "conv_bc": ax.spec((None, None), (cfg.ssm_conv, gbc)),
+        "A_log": ax.spec(("model",), (nh,)),
+        "D": ax.spec(("model",), (nh,)),
+        "dt_bias": ax.spec(("model",), (nh,)),
+        "norm_w": ax.spec(("model",), (d_inner,)),
+        "wo": ax.spec(("model", "data"), (d_inner, d)),
+    }
 
 
 def init_mamba(kg: KeyGen, cfg: ArchConfig, dtype=torch.float32,
@@ -172,9 +195,18 @@ def _split_bc(bc: torch.Tensor, n: int):
             Cp.reshape(*bc.shape[:-1], N_GROUPS, n))
 
 
-def _mamba_forward(p: Dict, u: torch.Tensor, cfg: ArchConfig, impl: str):
+def _local_dims(p: Dict, cfg: ArchConfig) -> Tuple[int, int, int]:
+    """``dims`` of the weights at hand: on a rank of a mesh, its share of
+    ``d_inner`` and of the heads."""
+    return p["wx"].shape[-1], p["wdt"].shape[-1], cfg.ssm_state
+
+
+def _mamba_forward(p: Dict, u: torch.Tensor, cfg: ArchConfig, impl: str,
+                   group=None):
+    """``group``: the heads are split over that group's ranks (per-rank
+    code), and the gated norm's mean runs over all of them."""
     b, l, d = u.shape
-    d_inner, nh, n = dims(cfg)
+    d_inner, nh, n = _local_dims(p, cfg)
     z = _mm(u, p["wz"])
     x = F.silu(_causal_conv(_mm(u, p["wx"]), p["conv_x"]))
     bc = F.silu(_causal_conv(_mm(u, p["wbc"]), p["conv_bc"]))
@@ -186,13 +218,58 @@ def _mamba_forward(p: Dict, u: torch.Tensor, cfg: ArchConfig, impl: str):
     y, state = ssd_chunked(xh * dt[..., None].to(xh.dtype), a, B_, C_,
                            impl=impl)
     y = y + p["D"].to(y.dtype)[:, None] * xh
-    y = rms_norm_gated(y.reshape(b, l, d_inner), z, p["norm_w"]).to(u.dtype)
+    y = rms_norm_gated(y.reshape(b, l, d_inner), z, p["norm_w"],
+                       group=group).to(u.dtype)
     return _mm(y, p["wo"]), state
+
+
+# On a mesh (DTensor inputs) a Mamba2 layer runs per rank: the rows over
+# the batch axes, the heads (and their d_inner channels) over "model"
+# where they divide it; B / C, shared by every head, are whole on each
+# rank. The output projection's result is each rank's partial sum.
+
+_MAMBA_SPLIT = {"wz": 1, "wx": 1, "wdt": 1, "conv_x": 1, "A_log": 0,
+                "D": 0, "dt_bias": 0, "norm_w": 0, "wo": 0}
+
+
+def _mamba_split(p: Dict, u, cfg: ArchConfig):
+    ax = axes_of(u)
+    bt = batch_split(ax, u.shape[0])
+    hx = split_axis(ax, dims(cfg)[1])
+    names = sorted(p)
+    wdims = [tuple(hx if i == _MAMBA_SPLIT.get(k) else None
+                   for i in range(p[k].dim())) for k in names]
+    group = ax.mesh.get_group("model") if hx is not None else None
+    return ax, bt, hx, names, wdims, group
+
+
+def _mamba_per_rank(body, p: Dict, u, cfg: ArchConfig, cache_args=(),
+                    cache_dims=(), out_dims=()):
+    """``body(u_local, *cache_local, p_local, group)`` per rank; its
+    first output is the layer's (partial over "model"), the others are
+    ``out_dims``."""
+    ax, bt, hx, names, wdims, group = _mamba_split(p, u, cfg)
+    k = len(names)
+
+    def local(*a):
+        return body(a[0], *a[1:-k], dict(zip(names, a[-k:])), group)
+
+    dims_of = {"state": (bt, hx, None, None), "conv_x": (bt, None, hx),
+               "conv_bc": (bt, None, None)}
+    return per_rank(local, ax, (u, *cache_args, *[p[n] for n in names]),
+                    [(bt, None, None)] + [dims_of[c] for c in cache_dims]
+                    + wdims,
+                    [(bt, None, None)] + [dims_of[c] for c in out_dims],
+                    partial=[hx])
 
 
 def mamba_full(p: Dict, u: torch.Tensor, cfg: ArchConfig,
                impl: str = "torch") -> torch.Tensor:
     """Full-sequence pass (no state emitted). u: (b, l, d)."""
+    if is_dtensor(u):
+        return _mamba_per_rank(
+            lambda u_, w, g: _mamba_forward(w, u_, cfg, impl, g)[0], p, u,
+            cfg)
     return _mamba_forward(p, u, cfg, impl)[0]
 
 
@@ -220,11 +297,23 @@ def mamba_prefill(p: Dict, u: torch.Tensor, cfg: ArchConfig, cache: Dict,
     if u.shape[1] < tail:
         raise ValueError(f"a prompt of {u.shape[1]} tokens is shorter than "
                          f"the conv window's {tail}")
+    if is_dtensor(u):
+        def body(u_, w, g):
+            out_, state_ = _mamba_forward(w, u_, cfg, impl, g)
+            t = u_[:, -tail:, :]
+            return out_, state_, _mm(t, w["wx"]), _mm(t, w["wbc"])
+
+        out, state, cx, cbc = _mamba_per_rank(
+            body, p, u, cfg, out_dims=("state", "conv_x", "conv_bc"))
+        assign_(cache["state"], state)
+        assign_(cache["conv_x"], cx)
+        assign_(cache["conv_bc"], cbc)
+        return out, cache
     out, state = _mamba_forward(p, u, cfg, impl)
     tail_u = u[:, -tail:, :]
-    cache["state"].copy_(state)
-    cache["conv_x"].copy_(_mm(tail_u, p["wx"]))
-    cache["conv_bc"].copy_(_mm(tail_u, p["wbc"]))
+    assign_(cache["state"], state)
+    assign_(cache["conv_x"], _mm(tail_u, p["wx"]))
+    assign_(cache["conv_bc"], _mm(tail_u, p["wbc"]))
     return out, cache
 
 
@@ -232,8 +321,27 @@ def mamba_decode(p: Dict, u: torch.Tensor, cfg: ArchConfig,
                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One-token recurrent step. u: (b, 1, d); ``cache`` updated in
     place."""
+    if is_dtensor(u):
+        def body(u_, st, cx, cbc, w, g):
+            c = {"state": st.clone(), "conv_x": cx.clone(),
+                 "conv_bc": cbc.clone()}
+            out_, c = _mamba_step(w, u_, cfg, c, g)
+            return out_, c["state"], c["conv_x"], c["conv_bc"]
+
+        names = ("state", "conv_x", "conv_bc")
+        out, *new = _mamba_per_rank(body, p, u, cfg,
+                                    [cache[k] for k in names], names,
+                                    names)
+        for k, v in zip(names, new):
+            assign_(cache[k], v)
+        return out, cache
+    return _mamba_step(p, u, cfg, cache)
+
+
+def _mamba_step(p: Dict, u: torch.Tensor, cfg: ArchConfig, cache: Dict,
+                group=None) -> Tuple[torch.Tensor, Dict]:
     b = u.shape[0]
-    d_inner, nh, n = dims(cfg)
+    d_inner, nh, n = _local_dims(p, cfg)
     ut = u[:, 0, :]
     z = _mm(ut, p["wz"])
     # Depthwise conv over the cached window (float32 caches promote).
@@ -255,9 +363,9 @@ def mamba_decode(p: Dict, u: torch.Tensor, cfg: ArchConfig,
         + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh)
     y = torch.einsum("bhpn,bhn->bhp", state, Ch)
     y = (y + p["D"][:, None] * xh).reshape(b, d_inner).to(u.dtype)
-    y = rms_norm_gated(y, z, p["norm_w"])
+    y = rms_norm_gated(y, z, p["norm_w"], group=group)
     out = _mm(y, p["wo"])[:, None, :]
-    cache["state"].copy_(state)
-    cache["conv_x"].copy_(cx[:, 1:, :])
-    cache["conv_bc"].copy_(cbc[:, 1:, :])
+    assign_(cache["state"], state)
+    assign_(cache["conv_x"], cx[:, 1:, :])
+    assign_(cache["conv_bc"], cbc[:, 1:, :])
     return out, cache

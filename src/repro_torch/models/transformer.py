@@ -42,6 +42,20 @@ Cross-attention and the encoder run the plain path under either impl,
 as in the reference. Caches are updated in place; Mamba caches are
 float32 whatever the cache dtype asked for, as in the reference.
 
+On a layout of several devices (``Model(cfg, layout)`` with a
+``launch.mesh.Layout`` that holds a ``DeviceMesh``) every weight is a
+DTensor placed by ``param_specs`` (the reference's specs: each rank
+holds only its shards), caches are placed by ``cache_pspecs`` and inputs
+are sharded over the batch axes. Each layer (attention, MLP, MoE,
+Mamba2, the embedding, the logits and the loss) runs per rank through
+``local_map`` (``common.per_rank``): rows over the batch axes, heads,
+``d_ff`` or the vocabulary over ``"model"`` where they divide it, with
+the reference's ``psum`` as an all-reduce of each rank's partial sum;
+the norms and residual adds between them run under DTensor's sharding
+propagation, the reference's ``with_sharding_constraint`` sites as
+``common.shard``. Plain tensors met there (masks, positions) are taken
+as replicated. Off a mesh the model holds plain tensors, as before.
+
 Weights are created with ``requires_grad=False``, so serving builds no
 autograd graph; a trainer calls ``requires_grad_(True)`` on its own
 model. ``loss`` runs the ``"full"`` mode with grad enabled and, where
@@ -52,8 +66,9 @@ period in ``jax.checkpoint``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -66,8 +81,13 @@ from repro_torch.configs.base import (ATTN, ATTN_CROSS, ATTN_LOCAL, DENSE,
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mlp as F
-from repro_torch.models.common import (KeyGen, cross_entropy_loss,
-                                       normal_init, rms_norm, softcap)
+from repro_torch.models.common import (AxisSizes, KeyGen, all_reduce_fwd,
+                                       axes_of, batch_split,
+                                       cross_entropy_loss, is_dtensor,
+                                       normal_init, per_rank, placed_empty,
+                                       placed_zeros, rms_norm, settled,
+                                       shard,
+                                       softcap, split_axis, upcast)
 
 __all__ = ["Model"]
 
@@ -81,15 +101,35 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _prepend(spec, dim=None):
+    """A layer's specs with the stacked (period) dimension in front."""
+    if isinstance(spec, dict):
+        return {k: _prepend(v, dim) for k, v in spec.items()}
+    return (dim,) + tuple(spec)
+
+
+def _flat(tree, prefix: str = "") -> Dict:
+    """A nested dict as ``{"blocks.l0.mix.wq": leaf, …}``."""
+    out: Dict = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 class _Layer(nn.Module):
     """One layer of the period block, its tensors stacked over ``n``
-    repetitions (the periods, or the encoder's layers)."""
+    repetitions (the periods, or the encoder's layers). ``make(name,
+    shape, dtype)`` creates each parameter (``name`` relative to the
+    layer)."""
 
-    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype, device,
-                 n: int):
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, dtype,
+                 make: Callable, n: int):
         super().__init__()
         d = cfg.d_model
-        self.norm1 = _param((n, d), torch.float32, device)
+        self.norm1 = make("norm1", (n, d), torch.float32)
         if spec.mixer == MAMBA:
             mix = {name: (shape, torch.float32 if name in M.F32_PARAMS
                           else dtype)
@@ -98,20 +138,20 @@ class _Layer(nn.Module):
             mix = {name: (shape, dtype)
                    for name, (shape, _) in A.attn_shapes(cfg).items()}
         self.mix = nn.ParameterDict({
-            name: _param((n,) + shape, dt, device)
+            name: make(f"mix.{name}", (n,) + shape, dt)
             for name, (shape, dt) in mix.items()})
         if spec.cross:
-            self.norm_cross = _param((n, d), torch.float32, device)
+            self.norm_cross = make("norm_cross", (n, d), torch.float32)
             self.cross = nn.ParameterDict({
-                name: _param((n,) + shape, dtype, device)
+                name: make(f"cross.{name}", (n,) + shape, dtype)
                 for name, (shape, _) in A.attn_shapes(cfg).items()})
         if spec.mlp != NONE:
             shapes = (F.moe_mlp_shapes(cfg) if spec.mlp == MOE
                       else F.dense_mlp_shapes(cfg))
-            self.norm2 = _param((n, d), torch.float32, device)
+            self.norm2 = make("norm2", (n, d), torch.float32)
             self.mlp = nn.ParameterDict({
-                name: _param((n,) + shape, F.ROUTER_DTYPE
-                             if name == "router" else dtype, device)
+                name: make(f"mlp.{name}", (n,) + shape, F.ROUTER_DTYPE
+                           if name == "router" else dtype)
                 for name, (shape, _) in shapes.items()})
 
 
@@ -155,35 +195,80 @@ class _Encoder(nn.Module):
     """Whisper's encoder: ``encoder_layers`` self-attention + dense MLP
     layers stacked in ``blocks``, then ``norm``."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, dtype, make: Callable):
         super().__init__()
-        self.blocks = _Layer(cfg, ENCODER_SPEC, dtype, device,
+        self.blocks = _Layer(cfg, ENCODER_SPEC, dtype,
+                             lambda n, *a: make(f"blocks.{n}", *a),
                              cfg.encoder_layers)
-        self.norm = _param((cfg.d_model,), torch.float32, device)
+        self.norm = make("norm", (cfg.d_model,), torch.float32)
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ArchConfig, device: Device = None,
+    """``layout`` is a device (``compat.resolve_device``: the card by
+    default) or a ``launch.mesh.Layout``: one with a ``DeviceMesh``
+    places every weight as a DTensor by ``param_specs``; one without
+    (``make_local_mesh``) is its device."""
+
+    def __init__(self, cfg: ArchConfig, layout: Union[Device, object] = None,
                  impl: Optional[str] = None,
                  compute_dtype=torch.bfloat16,
                  param_dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.pattern = cfg.layer_pattern()
+        if hasattr(layout, "axes"):
+            if layout.device is None:
+                raise ValueError(
+                    f"layout {layout.shape} has no devices: it needs a "
+                    f"process group of {layout.size} ranks")
+            self.device = layout.device
+            self.ax = AxisSizes.from_mesh(layout)
+        else:
+            self.device = resolve_device(layout)
+            self.ax = AxisSizes.single()
         self.impl = resolve_backend(impl, self.device, plain_on_cpu=True)
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
-        self.pattern = cfg.layer_pattern()
-        dev = self.device
-        self.embed = _param((cfg.vocab, cfg.d_model), param_dtype, dev)
-        self.final_norm = _param((cfg.d_model,), torch.float32, dev)
+        specs = _flat(self.param_specs()) if self.ax.mesh is not None \
+            else None
+
+        def make(name, shape, dtype):
+            if specs is None:
+                return _param(shape, dtype, self.device)
+            return nn.Parameter(placed_empty(
+                shape, dtype, self.device, self.ax.mesh,
+                self.ax.placements(specs[name])), requires_grad=False)
+
+        self.embed = make("embed", (cfg.vocab, cfg.d_model), param_dtype)
+        self.final_norm = make("final_norm", (cfg.d_model,), torch.float32)
         self.blocks = nn.ModuleDict({
-            f"l{i}": _Layer(cfg, sp, param_dtype, dev, cfg.n_periods)
+            f"l{i}": _Layer(cfg, sp, param_dtype,
+                            lambda n, *a, i=i: make(f"blocks.l{i}.{n}", *a),
+                            cfg.n_periods)
             for i, sp in enumerate(self.pattern)})
         if cfg.encoder_layers:
-            self.encoder = _Encoder(cfg, param_dtype, dev)
+            self.encoder = _Encoder(cfg, param_dtype,
+                                    lambda n, *a: make(f"encoder.{n}", *a))
         if cfg.family == "vlm":
-            self.front_norm = _param((cfg.d_model,), torch.float32, dev)
+            self.front_norm = make("front_norm", (cfg.d_model,),
+                                   torch.float32)
+
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the weights are placed on, or ``None``."""
+        return self.ax.mesh
+
+    def sharded(self):
+        """The context of a forward or backward pass on a mesh: plain
+        tensors met by a DTensor op (masks, positions, and the masks the
+        backward pass reads) are taken as replicated. A no-op off a
+        mesh. The entry points enter it themselves; a caller enters it
+        around ``loss(...).backward()``."""
+        if self.ax.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
 
     def with_impl(self, impl: str) -> "Model":
         """A view of this model (the same weight tensors) that runs
@@ -205,6 +290,12 @@ class Model(nn.Module):
         Mamba layers' deterministic ``A_log``, ``D`` and ``dt_bias``. The
         numbers differ from the JAX package's ``Model.init(seed)``; the
         tests load those through ``convert.params_from_jax``."""
+        if self.ax.mesh is not None:
+            # Every rank draws the whole tree from the same generator,
+            # as one device does, and keeps its shards.
+            plain = Model(self.cfg, self.device, self.impl,
+                          self.compute_dtype, self.param_dtype).init(seed)
+            return self.place_(plain.state_dict())
         kg = KeyGen(seed, self.device)
         cfg, dt, dev = self.cfg, self.param_dtype, self.device
         self.embed.copy_(normal_init(kg(), self.embed.shape,
@@ -229,9 +320,110 @@ class Model(nn.Module):
                         params[name][i].copy_(t)
         return self
 
+    @torch.no_grad()
+    def place_(self, state: Dict[str, torch.Tensor]) -> "Model":
+        """Loads whole tensors (``{"blocks.l0.mix.wq": t, …}``, e.g.
+        ``convert.params_from_jax`` or another model's ``state_dict``),
+        each rank keeping its shard of each; returns self."""
+        for name, p in self.named_parameters():
+            full = state[name]
+            full = full.full_tensor() if is_dtensor(full) else full
+            full = full.to(device=self.device, dtype=p.dtype)
+            if is_dtensor(p):
+                from torch.distributed.tensor import distribute_tensor
+                p.to_local().copy_(distribute_tensor(
+                    full, p.device_mesh, p.placements,
+                    src_data_rank=None).to_local())
+            else:
+                p.copy_(full)
+        return self
+
     def params(self) -> Dict:
         """The weights as the JAX package's nested parameter dict."""
         return _tree(self)
+
+    # ------------------------------------------------------------- specs
+
+    def _layer_specs(self, spec: LayerSpec) -> Dict:
+        cfg, ax = self.cfg, self.ax
+        s: Dict = {"norm1": (None,)}
+        s["mix"] = M.mamba_specs(cfg, ax) if spec.mixer == MAMBA \
+            else A.attn_specs(cfg, ax)
+        if spec.cross:
+            s["norm_cross"] = (None,)
+            s["cross"] = A.attn_specs(cfg, ax)
+        if spec.mlp != NONE:
+            s["norm2"] = (None,)
+            s["mlp"] = (F.dense_mlp_specs(cfg, ax) if spec.mlp == DENSE
+                        else F.moe_specs(cfg, ax))
+        return s
+
+    def param_specs(self) -> Dict:
+        """The reference's parameter specs: the parameter tree with a
+        spec (a tuple of axis names, ``None`` or tuples of names, one
+        per dimension) at each leaf."""
+        cfg, ax = self.cfg, self.ax
+        specs: Dict = {
+            "embed": ax.spec(("model", "data"), (cfg.vocab, cfg.d_model)),
+            "final_norm": (None,),
+            "blocks": {
+                f"l{i}": _prepend(self._layer_specs(sp))
+                for i, sp in enumerate(self.pattern)
+            },
+        }
+        if cfg.encoder_layers:
+            specs["encoder"] = {
+                "blocks": _prepend(self._layer_specs(ENCODER_SPEC)),
+                "norm": (None,),
+            }
+        if cfg.family == "vlm":
+            specs["front_norm"] = (None,)
+        return specs
+
+    def cache_pspecs(self, cache: Dict) -> Dict:
+        """The reference's key-aware cache specs (``cache``: the cache
+        tree, or the same tree with each leaf's shape).
+
+        KV caches (period, batch, kv_heads, seq, hd): batch over the
+        batch axes when divisible; otherwise (batch-1 long-context
+        cells) the *sequence* dim is sharded — over 'data', and also
+        over 'model' when the kv-head count doesn't divide the model
+        axis. SSM states shard heads over 'model'; conv tails shard
+        channels."""
+        ax = self.ax
+
+        def kv_spec(shape):
+            per, b, kv, s, hd = shape
+            batch_ok = b % ax.size(ax.batch_axes) == 0 and \
+                ax.size(ax.batch_axes) > 1
+            heads_ok = kv % ax.size("model") == 0 and ax.size("model") > 1
+            if batch_ok:
+                return ax.spec((None, ax.batch_axes,
+                                "model" if heads_ok else None, None, None),
+                               shape)
+            seq_axes = ("data",) if heads_ok else ("data", "model")
+            if ax.has("pod"):
+                seq_axes = ("pod",) + seq_axes
+            return ax.spec((None, None, "model" if heads_ok else None,
+                            seq_axes, None), shape)
+
+        def spec_of(key, a):
+            shape = tuple(getattr(a, "shape", a))
+            if key in ("k", "v", "ck", "cv"):
+                return kv_spec(shape)
+            if key == "state":       # (period, b, nh, p, n)
+                return ax.spec((None, ax.batch_axes, "model", None, None),
+                               shape)
+            if key in ("conv_x", "conv_bc"):   # (period, b, w-1, ch)
+                return ax.spec((None, ax.batch_axes, None, "model"), shape)
+            return ax.spec((None, ax.batch_axes) + (None,) * (len(shape)
+                                                              - 2), shape)
+
+        def walk(node):
+            return {k: walk(v) if isinstance(v, dict) else spec_of(k, v)
+                    for k, v in node.items()}
+
+        return walk(cache)
 
     # ------------------------------------------------------------- caches
 
@@ -256,27 +448,128 @@ class Model(nn.Module):
                 del c["k"], c["v"]
             return {name: (shape, dtype) for name, shape in c.items()}
 
-        return {f"l{i}": {name: torch.zeros((n,) + shape, dtype=dt,
-                                            device=self.device)
-                          for name, (shape, dt) in layer(sp).items()}
-                for i, sp in enumerate(self.pattern)}
+        shapes = {f"l{i}": {name: ((n,) + shape, dt)
+                            for name, (shape, dt) in layer(sp).items()}
+                  for i, sp in enumerate(self.pattern)}
+        if self.ax.mesh is not None:
+            specs = self.cache_pspecs(
+                {li: {k: shape for k, (shape, _) in lc.items()}
+                 for li, lc in shapes.items()})
+            return {li: {k: placed_zeros(shape, dt, self.device,
+                                         self.ax.mesh,
+                                         self.ax.placements(specs[li][k]))
+                         for k, (shape, dt) in lc.items()}
+                    for li, lc in shapes.items()}
+        return {li: {k: torch.zeros(shape, dtype=dt, device=self.device)
+                     for k, (shape, dt) in lc.items()}
+                for li, lc in shapes.items()}
 
     # ------------------------------------------------------------ forward
 
+    def _input(self, t) -> torch.Tensor:
+        """An input tensor on the model's device; on a mesh, a plain
+        tensor (the whole batch, the same on every rank) becomes a
+        DTensor sharded over the batch axes where they divide it."""
+        if is_dtensor(t):
+            return t
+        t = torch.as_tensor(t, device=self.device)
+        if self.ax.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        ax = self.ax
+        spec = ax.spec((ax.batch_axes,) + (None,) * (t.dim() - 1), t.shape)
+        return distribute_tensor(t, ax.mesh, ax.placements(spec),
+                                 src_data_rank=None)
+
     def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device).long()
+        return self._input(tokens).long()
 
     def _embed(self, params, tokens):
-        x = params["embed"][tokens].to(self.compute_dtype)
+        embed = params["embed"]
+        if is_dtensor(tokens):
+            x = self._embed_per_rank(embed, tokens)
+        else:
+            x = embed[tokens]
+        x = x.to(self.compute_dtype)
         return x * torch.tensor(self.cfg.d_model ** 0.5,
                                 dtype=self.compute_dtype, device=x.device)
 
+    def _vocab_split(self, tokens):
+        """(the mesh axes, the rows' axes, the vocabulary's axis): the
+        vocabulary over "model" where it divides it (the embedding's
+        spec), else whole on each rank."""
+        ax = axes_of(tokens)
+        return ax, batch_split(ax, tokens.shape[0]), \
+            split_axis(ax, self.cfg.vocab)
+
+    def _embed_per_rank(self, embed, tokens):
+        """The lookup per rank: each rank holds a slice of the vocabulary
+        and looks up the tokens that fall in it (0 for the others); the
+        result is its partial sum over "model"."""
+        ax, bt, vx = self._vocab_split(tokens)
+
+        def body(tok, emb):
+            if vx is None:
+                return emb[tok]
+            lo = ax.mesh.get_local_rank(vx) * emb.shape[0]
+            mine = (tok >= lo) & (tok < lo + emb.shape[0])
+            rows = emb[(tok - lo).clamp(0, emb.shape[0] - 1)]
+            return torch.where(mine[..., None], rows, torch.zeros(
+                (), dtype=rows.dtype, device=rows.device))
+
+        return per_rank(body, ax, (tokens, embed),
+                        [(bt, None), (vx, None)], [(bt, None, None)],
+                        partial=[vx])
+
     def _logits(self, params, x):
-        x = rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bsd,vd->bsv", x,
-                              params["embed"].to(self.compute_dtype)
-                              .to(x.dtype))
+        x = settled(rms_norm(x, params["final_norm"]))
+        embed = params["embed"].to(self.compute_dtype)
+        if is_dtensor(x):
+            # Per rank: each rank's rows against its slice of the
+            # vocabulary (the logits stay sharded over "model").
+            ax, bt, vx = self._vocab_split(x)
+            logits = per_rank(
+                lambda x_, e: torch.einsum("bsd,vd->bsv", x_, e.to(x_.dtype)),
+                ax, (x, embed), [(bt, None, None), (vx, None)],
+                [(bt, None, vx)])
+        else:
+            logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
+        logits = shard(logits, self.ax, (self.ax.batch_axes, None, "model"))
         return softcap(logits, self.cfg.final_softcap)
+
+    def _loss(self, logits, labels):
+        """Mean token cross-entropy. On a mesh, per rank over its rows and
+        its slice of the vocabulary: the max, the sum of exponentials and
+        the gold logit are combined over "model". Each batch rank's mean
+        over its rows, divided by the batch ranks, is its partial sum of
+        the loss: its gradient is then its share of the mean's (an
+        average placement would hand each rank the whole mean's
+        gradient, and the batch ranks' sum would be that many times
+        too large)."""
+        if not is_dtensor(logits):
+            return cross_entropy_loss(logits, labels)
+        ax, bt, vx = self._vocab_split(logits)
+        group = ax.mesh.get_group(vx) if vx is not None else None
+        ranks = ax.size(bt) if bt is not None else 1
+
+        def body(lg, lb):
+            if group is None:
+                return cross_entropy_loss(lg, lb) / ranks
+            lg = lg.to(upcast(lg.dtype))
+            m = all_reduce_fwd(lg.detach().amax(-1, keepdim=True), group,
+                               op="max")
+            se = all_reduce_fwd(torch.exp(lg - m).sum(-1), group)
+            logz = m[..., 0] + torch.log(se)
+            lo = ax.mesh.get_local_rank(vx) * lg.shape[-1]
+            mine = (lb >= lo) & (lb < lo + lg.shape[-1])
+            gold = torch.gather(lg, -1, (lb - lo).clamp(
+                0, lg.shape[-1] - 1)[..., None].long())[..., 0]
+            gold = all_reduce_fwd(torch.where(mine, gold, torch.zeros(
+                (), dtype=gold.dtype, device=gold.device)), group)
+            return torch.mean(logz - gold) / ranks
+
+        return per_rank(body, ax, (logits, labels),
+                        [(bt, None, vx), (bt, None)], [()], partial=[bt])
 
     def _mixer(self, lp, spec: LayerSpec, h, mode, cache, pos, src):
         cfg = self.cfg
@@ -317,17 +610,26 @@ class Model(nn.Module):
             if sp.cross and lc is not None:
                 mix_c = {k: lc[k] for k in ("k", "v")}
                 cross_c = {k: lc[k] for k in ("ck", "cv")}
-            h = rms_norm(x, lp["norm1"])
+            # On a mesh each sublayer's partial sums (and its input's
+            # partial gradient) are combined at the sublayer, in the
+            # compute dtype (``settled``), as GSPMD combines them.
+            h = settled(rms_norm(x, lp["norm1"]))
             out, _ = self._mixer(lp, sp, h, mode, mix_c, pos, src)
-            x = x + out
+            x = x + settled(out)
             if sp.cross:
-                hc = rms_norm(x, lp["norm_cross"])
-                x = x + self._cross(lp["cross"], hc, mode, cross_c, src)
+                hc = settled(rms_norm(x, lp["norm_cross"]))
+                x = x + settled(self._cross(lp["cross"], hc, mode,
+                                            cross_c, src))
             if sp.mlp != NONE:
-                h2 = rms_norm(x, lp["norm2"])
-                x = x + (F.moe_mlp(lp["mlp"], h2, self.cfg)
-                         if sp.mlp == MOE else F.dense_mlp(lp["mlp"], h2))
+                h2 = settled(rms_norm(x, lp["norm2"]))
+                x = x + settled(F.moe_mlp(lp["mlp"], h2, self.cfg, self.ax)
+                                if sp.mlp == MOE
+                                else F.dense_mlp(lp["mlp"], h2))
         return x
+
+    def _block_sharded(self, *args):
+        with self.sharded():
+            return self._block(*args)
 
     def _run_blocks(self, params, x, mode, cache=None, pos=None, src=None):
         remat = self.cfg.remat and mode == "full" and \
@@ -336,7 +638,10 @@ class Model(nn.Module):
         for i, blk in enumerate(_unbind(params["blocks"], n)):
             cb = _index(cache, i) if cache is not None else None
             if remat:
-                x = checkpoint(self._block, x, blk, cb, mode, pos, src,
+                # The recompute runs in the backward pass, outside the
+                # entry point's context: the block enters it again.
+                x = checkpoint(self._block_sharded, x, blk, cb, mode, pos,
+                               src,
                                use_reentrant=False,
                                preserve_rng_state=False)
             else:
@@ -344,15 +649,15 @@ class Model(nn.Module):
         return x, cache
 
     def _encode(self, params, frames):
-        x = torch.as_tensor(frames, device=self.device).to(
-            self.compute_dtype)
+        x = self._input(frames).to(self.compute_dtype)
         enc = params["encoder"]
         for blk in _unbind(enc["blocks"], self.cfg.encoder_layers):
-            h = rms_norm(x, blk["norm1"])
-            x = x + A.attend_full(blk["mix"], h, self.cfg, local=False,
-                                  impl="torch", causal=False)
-            h2 = rms_norm(x, blk["norm2"])
-            x = x + F.dense_mlp(blk["mlp"], h2)
+            h = settled(rms_norm(x, blk["norm1"]))
+            x = x + settled(A.attend_full(blk["mix"], h, self.cfg,
+                                          local=False, impl="torch",
+                                          causal=False))
+            h2 = settled(rms_norm(x, blk["norm2"]))
+            x = x + settled(F.dense_mlp(blk["mlp"], h2))
         return rms_norm(x, enc["norm"])
 
     def _frontend(self, params, batch):
@@ -370,7 +675,7 @@ class Model(nn.Module):
                 f"embeddings")
         if cfg.family == "audio":
             return self._encode(params, front)
-        front = torch.as_tensor(front, device=self.device)
+        front = self._input(front)
         return rms_norm(front.to(self.compute_dtype), params["front_norm"])
 
     # -------------------------------------------------------- entry points
@@ -380,7 +685,8 @@ class Model(nn.Module):
         """Whisper's encoder over stub frame embeddings (b, F, d): the
         bidirectional self-attention layers (plain path) and the final
         norm, in the compute dtype."""
-        return self._encode(self.params(), frames)
+        with self.sharded():
+            return self._encode(self.params(), frames)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
@@ -388,11 +694,12 @@ class Model(nn.Module):
         """Full-sequence logits (b, s, vocab), no cache; ``frontend`` as
         ``batch["frontend"]`` of ``prefill``."""
         params = self.params()
-        src = self._frontend(params, {"frontend": frontend})
-        x, _ = self._run_blocks(params, self._embed(params,
-                                                    self._tokens(tokens)),
-                                "full", src=src)
-        return self._logits(params, x)
+        with self.sharded():
+            src = self._frontend(params, {"frontend": frontend})
+            x, _ = self._run_blocks(params,
+                                    self._embed(params, self._tokens(tokens)),
+                                    "full", src=src)
+            return self._logits(params, x)
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache: Dict):
@@ -400,11 +707,12 @@ class Model(nn.Module):
         and the cache (rows [0, s) written in place; ``ck`` / ``cv`` from
         ``batch["frontend"]``, which vlm and audio models need)."""
         params = self.params()
-        src = self._frontend(params, batch)
-        x = self._embed(params, self._tokens(batch["tokens"]))
-        x, cache = self._run_blocks(params, x, "prefill", cache=cache,
-                                    src=src)
-        return self._logits(params, x[:, -1:, :]), cache
+        with self.sharded():
+            src = self._frontend(params, batch)
+            x = self._embed(params, self._tokens(batch["tokens"]))
+            x, cache = self._run_blocks(params, x, "prefill", cache=cache,
+                                        src=src)
+            return self._logits(params, x[:, -1:, :]), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Dict, pos):
@@ -412,10 +720,11 @@ class Model(nn.Module):
         int or 0-d tensor) or (b,) per-row positions (continuous
         batching). Returns logits (b, 1, vocab) and the cache."""
         params = self.params()
-        x = self._embed(params, self._tokens(tokens))
-        x, cache = self._run_blocks(params, x, "decode", cache=cache,
-                                    pos=pos)
-        return self._logits(params, x), cache
+        with self.sharded():
+            x = self._embed(params, self._tokens(tokens))
+            x, cache = self._run_blocks(params, x, "decode", cache=cache,
+                                        pos=pos)
+            return self._logits(params, x), cache
 
     def loss(self, batch: Dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
@@ -428,8 +737,10 @@ class Model(nn.Module):
                   if p.dtype == torch.float32 and p.ndim > 1 else p
                   for name, p in self.named_parameters()}
         params = _tree_of(params)
-        src = self._frontend(params, batch)
-        x = self._embed(params, self._tokens(batch["tokens"]))
-        x, _ = self._run_blocks(params, x, "full", src=src)
-        return cross_entropy_loss(self._logits(params, x),
-                                  self._tokens(batch["labels"]))
+        with self.sharded():
+            src = self._frontend(params, batch)
+            x = self._embed(params, self._tokens(batch["tokens"]))
+            x = shard(x, self.ax, (self.ax.batch_axes, None, None))
+            x, _ = self._run_blocks(params, x, "full", src=src)
+            return self._loss(self._logits(params, x),
+                              self._tokens(batch["labels"]))

@@ -39,8 +39,9 @@ stop, and the capacity the policy acts on becomes ``max(C - failed(t),
 not take them: ``kernel=None`` runs a fault pack on the plain step
 (``"torch"``) on any device, and ``kernel="cuda"`` refuses it.
 
-Not ported yet (raises, naming the ROADMAP item): the multi-GPU lane
-splitter (``devices`` other than ``None`` / 1).
+``devices`` splits the lanes across devices through the scan engine's
+``sharded_grid_map``, with rows equal bit for bit; fault packs refuse
+it, as in the reference.
 """
 
 from __future__ import annotations
@@ -56,8 +57,9 @@ from repro_torch import compat
 from repro_torch.core.jobs import Job
 from repro_torch.core.profiles import step_points
 from repro_torch.sim.scan import (FBGrid, FLBGrid, _lane_prm_tree,
-                                  _size_classes, fb_actions, flb_actions,
-                                  pack_job_table, resolve_pack_dtype,
+                                  _prm_tree, _size_classes, fb_actions,
+                                  flb_actions, pack_job_table,
+                                  resolve_pack_dtype, sharded_grid_map,
                                   stable_compact)
 
 __all__ = [
@@ -914,12 +916,20 @@ def rounds_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
                  flb_spec: Optional[RoundsSpec] = None,
                  devices=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Evaluate FB and FLB-NUB sweep grids through the event-round
-    engine on the device the packs live on. Returns ``{"fb": metrics,
-    "flb_nub": metrics}`` with ``(W, P_policy)`` metric tensors; a
-    policy is skipped when its spec is ``None``. ``devices`` other than
-    ``None`` / 1 raises: the lane splitter over several GPUs is not
-    ported yet."""
-    compat.check_devices(devices)
+    engine. Returns ``{"fb": metrics, "flb_nub": metrics}`` with ``(W,
+    P_policy)`` metric tensors; a policy is skipped when its spec is
+    ``None``. ``devices`` selects the backend as for
+    ``scan.scan_grids``: ``None`` / one device runs every lane on the
+    packs' device, two or more split the lanes across them through the
+    shared ``scan.sharded_grid_map``, bit for bit the same rows.
+    Fault-injected packs run on one device only, as in the reference."""
+    devs = compat.resolve_devices(devices)
+    if devs is not None and any(
+            pk is not None and pk.fault_times is not None
+            for pk in (fb_packed, flb_packed)):
+        raise NotImplementedError(
+            "fault-injected packs run single-device; the sharded lane "
+            "splitter predates the optional fault tables")
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for policy, grid, packed, spec in (("fb", fb, fb_packed, fb_spec),
                                        ("flb_nub", flb, flb_packed,
@@ -928,6 +938,11 @@ def rounds_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
             continue
         W = int(packed.submit.shape[0])
         P = int(grid.lease.shape[0])
+        if devs is not None:
+            out[policy] = sharded_grid_map(
+                functools.partial(_simulate_rounds, policy, spec=spec),
+                _prm_tree(policy, grid), packed, W, P, devs)
+            continue
         m = _simulate_rounds(policy, _lane_prm_tree(policy, grid, W),
                              packed, spec)
         out[policy] = {k: v.reshape(W, P) for k, v in m.items()}

@@ -33,6 +33,8 @@ module's docstring.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,7 +47,7 @@ from repro_torch.core.profiles import sample_steps, step_points
 
 __all__ = ["FBGrid", "FLBGrid", "PackedWorkloads", "ScanSpec",
            "pack_workloads", "pack_job_table", "resolve_pack_dtype",
-           "scan_grids", "pick_dt", "fb_actions", "flb_actions",
+           "scan_grids", "sharded_grid_map", "pick_dt", "fb_actions", "flb_actions",
            "stable_compact", "compact_window", "KILL_CLASSES",
            "DEFAULT_WINDOW", "DEFAULT_SUBSTEPS", "DEFAULT_FF_PASSES",
            "FB_DT", "FLB_DT", "FLB_MIN_DT"]
@@ -542,19 +544,111 @@ def _simulate(policy: str, prm: Dict, pk: PackedWorkloads,
     }
 
 
+def _gather_pack(pk, rows: torch.Tensor, device: torch.device):
+    """The pack of the lanes ``rows``: each tensor field's rows
+    ``field[rows]``, on ``device`` (fields that are ``None`` stay so)."""
+    return dataclasses.replace(pk, **{
+        f.name: getattr(pk, f.name)[rows].to(device)
+        for f in dataclasses.fields(pk)
+        if getattr(pk, f.name) is not None})
+
+
+def _run_shards(jobs) -> List:
+    """Runs ``jobs`` (``(device, fn)`` pairs) and returns their results
+    in order. Every shard is launched before any result is read back:
+    one host thread per distinct device, each running its own shards in
+    turn (a device named twice queues its second shard behind its
+    first), so distinct cards overlap while the engines read results on
+    the host as they go."""
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, (dev, _) in enumerate(jobs):
+        by_dev.setdefault(dev, []).append(i)
+    out: List = [None] * len(jobs)
+    errors: List[BaseException] = []
+
+    def work(dev, idx):
+        try:
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            for i in idx:
+                out[i] = jobs[i][1]()
+        except BaseException as e:      # re-raised on the caller's thread
+            errors.append(e)
+
+    if len(by_dev) == 1:
+        work(*next(iter(by_dev.items())))
+    else:
+        threads = [threading.Thread(target=work, args=item)
+                   for item in by_dev.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def sharded_grid_map(lane_fn, prm_tree: Dict[str, torch.Tensor], packed,
+                     n_workloads: int, n_points: int,
+                     devices: Sequence[torch.device]
+                     ) -> Dict[str, torch.Tensor]:
+    """The counterpart of ``repro.sim.scan.sharded_grid_map``: runs
+    ``lane_fn(prm, pack) -> metrics`` over the flattened (trace × point)
+    lanes split across ``devices`` and reshapes the metrics to ``(W,
+    P)``, on the host.
+
+    The lanes (lane ``w·P + p``) are padded with copies of lane 0 to a
+    multiple of the device count and cut into one contiguous shard per
+    device. Each shard gets its own pack, the workload rows its lanes
+    read (gathered by ``w_idx``), and its own parameter tree (gathered
+    by ``p_idx``), and runs the same per-lane program as the
+    single-device path on its device. There is no collective: the lanes
+    are independent, so every row equals the single-device row bit for
+    bit. The pad is dropped before the metrics are reshaped."""
+    d = len(devices)
+    w, p = n_workloads, n_points
+    n = w * p
+    pad = -n % d
+    src = packed.submit.device
+    w_idx = torch.cat([torch.arange(w).repeat_interleave(p),
+                       torch.zeros(pad, dtype=torch.long)])
+    p_idx = torch.cat([torch.arange(p).repeat(w),
+                       torch.zeros(pad, dtype=torch.long)])
+    per = (n + pad) // d
+
+    def shard(i: int):
+        dev = devices[i]
+        wl = w_idx[i * per:(i + 1) * per]
+        pl = p_idx[i * per:(i + 1) * per].to(dev)
+        prm = {k: v[pl.to(v.device)].to(dev) for k, v in prm_tree.items()}
+        prm["p_idx"] = pl
+        prm["w_idx"] = torch.arange(per, device=dev)
+        pk = _gather_pack(packed, wl.to(src), dev)
+        return lambda: {k: v.cpu() for k, v in lane_fn(prm, pk).items()}
+
+    parts = _run_shards([(devices[i], shard(i)) for i in range(d)])
+    return {k: torch.cat([m[k] for m in parts])[:n].reshape(w, p)
+            for k in parts[0]}
+
+
 def scan_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
                fb_packed: Optional[PackedWorkloads],
                flb_packed: Optional[PackedWorkloads], *,
                fb_spec: Optional[ScanSpec] = None,
                flb_spec: Optional[ScanSpec] = None,
                devices=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Evaluate FB and FLB-NUB sweep grids over all packed workloads on
-    the device the packs live on. Returns ``{"fb": metrics, "flb_nub":
-    metrics}`` where each metric tensor has shape ``(W, P_policy)``; a
-    policy is skipped when its spec is ``None``. Each policy runs at its
-    own :class:`ScanSpec`. ``devices`` other than ``None`` / 1 raises:
-    the lane splitter over several GPUs is not ported yet."""
-    compat.check_devices(devices)
+    """Evaluate FB and FLB-NUB sweep grids over all packed workloads.
+    Returns ``{"fb": metrics, "flb_nub": metrics}`` where each metric
+    tensor has shape ``(W, P_policy)``; a policy is skipped when its spec
+    is ``None``. Each policy runs at its own :class:`ScanSpec`.
+
+    ``devices`` (``compat.resolve_devices``): ``None`` / one device runs
+    every lane on the device the packs live on; two or more split the
+    flattened (trace × point) lanes across them
+    (:func:`sharded_grid_map`), with rows equal bit for bit and the
+    metrics on the host."""
+    devs = compat.resolve_devices(devices)
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for policy, grid, packed, spec in (("fb", fb, fb_packed, fb_spec),
                                        ("flb_nub", flb, flb_packed,
@@ -563,6 +657,11 @@ def scan_grids(fb: Optional[FBGrid], flb: Optional[FLBGrid],
             continue
         W = int(packed.submit.shape[0])
         P = int(grid.lease.shape[0])
+        if devs is not None:
+            out[policy] = sharded_grid_map(
+                functools.partial(_simulate, policy, spec=spec),
+                _prm_tree(policy, grid), packed, W, P, devs)
+            continue
         m = _simulate(policy, _lane_prm_tree(policy, grid, W), packed, spec)
         out[policy] = {k: v.reshape(W, P) for k, v in m.items()}
     return out

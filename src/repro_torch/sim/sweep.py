@@ -43,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -125,8 +125,10 @@ class ScanOptions:
     engine. ``dtype`` is the pack dtype (float32 by default, float64 on
     request). ``kernel`` selects the round-step backend: ``None`` picks
     the CUDA kernel on a CUDA device and the plain version on the CPU;
-    ``"cuda"`` and ``"torch"`` choose. ``devices`` other than ``None`` /
-    1 raises: the multi-GPU lane splitter is not ported yet."""
+    ``"cuda"`` and ``"torch"`` choose. ``devices``
+    (``compat.resolve_devices``: a count of cards, or a device list,
+    which may repeat a device) splits the batched paths' (trace ×
+    point) lanes across devices, with the rows of ``None``."""
 
     dt: Optional[float] = None
     window: Optional[int] = None
@@ -134,7 +136,7 @@ class ScanOptions:
     ff_passes: Optional[int] = None
     coalesce: Optional[int] = None
     dtype: Optional[np.dtype] = None
-    devices: Optional[int] = None
+    devices: Optional[Union[int, Sequence]] = None
     kernel: Optional[str] = None
 
     def resolve(self, policy: str, leases: Sequence[float],
@@ -654,7 +656,7 @@ def run_sweep_workloads(points: Sequence[SweepPoint],
     warn_stacklevel = 4 + _stack_offset
     if devices is not None:
         scan_options = dataclasses.replace(scan_options, devices=devices)
-    compat.check_devices(scan_options.devices)
+    compat.resolve_devices(scan_options.devices)
     if isinstance(workloads, scenarioslib.ScenarioGrid):
         # Generated scenario batches (seeds + param grids, not
         # List[Job]) flow the event-round engine only: the lanes share

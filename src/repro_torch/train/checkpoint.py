@@ -19,8 +19,14 @@ restores in the other.
     them) with manifest dtype ``"bfloat16"``, and read back through the
     manifest's dtype: no ``ml_dtypes`` is needed.
   * ``restore(step, template, device=)`` places the leaves on the target
-    device: the one-node counterpart of the reference's reshard on
-    restore.
+    device; with ``layout=`` and ``specs=`` (a ``launch.mesh.Layout``
+    with a ``DeviceMesh`` and the leaves' specs) each leaf is read on the
+    host and placed with the target layout's placements: the elastic
+    reshard of the reference's ``restore(mesh=, specs=)``.
+  * A tree of DTensors (a model on a mesh) is saved by gathering each
+    leaf once (``full_tensor``, on every rank); rank 0 writes the same
+    format, and the other ranks wait for it (a barrier after the write)
+    before they go on.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import Device
+from repro_torch.models.common import AxisSizes, is_dtensor
 
 __all__ = ["Checkpointer", "TornCheckpointError", "flatten_with_paths"]
 
@@ -109,20 +117,25 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False     # the last save was of a sharded tree
 
     # ------------------------------------------------------------------ save
 
     def save(self, step: int, tree: PyTree,
              metadata: Optional[Dict] = None) -> str:
         self.wait()
-        host = self._snapshot(tree)
-        return self._write(step, host, metadata or {})
+        host, writer = self._snapshot(tree)
+        final = os.path.join(self.directory, f"step_{step}")
+        if writer:
+            final = self._write(step, host, metadata or {})
+        self.wait()
+        return final
 
     def save_async(self, step: int, tree: PyTree,
                    metadata: Optional[Dict] = None) -> None:
         """Snapshot synchronously, write in the background."""
         self.wait()
-        host = self._snapshot(tree)
+        host, writer = self._snapshot(tree)
         meta = dict(metadata or {})
 
         def work():
@@ -131,20 +144,32 @@ class Checkpointer:
             except BaseException as e:   # surfaced on next wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=work, daemon=True)
-        self._thread.start()
+        if writer:
+            self._thread = threading.Thread(target=work, daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            # A sharded save: every rank waits for rank 0's write.
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def _snapshot(self, tree: PyTree):
+        """``((paths, host arrays), writer)``: DTensor leaves are
+        gathered whole (a collective every rank takes part in), and only
+        rank 0 writes them."""
         paths, leaves = flatten_with_paths(tree)
-        return paths, [_host_copy(x) for x in leaves]
+        sharded = any(is_dtensor(x) for x in leaves)
+        host = [_host_copy(x.full_tensor() if is_dtensor(x) else x)
+                for x in leaves]
+        self._barrier = sharded
+        return (paths, host), not sharded or dist.get_rank() == 0
 
     def _write(self, step: int, host, metadata: Dict) -> str:
         paths, arrays = host
@@ -192,10 +217,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: int, template: PyTree, device: Device = None,
-                verify: bool = True) -> Tuple[PyTree, Dict]:
+                verify: bool = True, layout=None,
+                specs: Optional[PyTree] = None) -> Tuple[PyTree, Dict]:
         """Restore into the structure of ``template``: each leaf a tensor
         of the checkpoint's dtype and shape on ``device`` (by default the
-        template leaf's device, or the CPU). A torn directory —
+        template leaf's device, the layout's, or the CPU). With
+        ``layout`` (a ``launch.mesh.Layout`` with a ``DeviceMesh``) and
+        ``specs`` (a spec per leaf, the tree's structure), each leaf
+        becomes a DTensor with the spec's placements on the layout's
+        mesh, each rank keeping its shard. A torn directory —
         unreadable/unparsable manifest, missing leaf blob or manifest
         entry, checksum mismatch — raises :class:`TornCheckpointError`."""
         d = os.path.join(self.directory, f"step_{step}")
@@ -207,8 +237,13 @@ class Checkpointer:
                 f"step {step}: unreadable manifest ({e})") from e
         by_path = {e["path"]: e for e in manifest["leaves"]}
         paths, leaves = flatten_with_paths(template)
+        spec_leaves = None
+        if layout is not None and specs is not None:
+            spec_leaves = flatten_with_paths(specs)[1]
+            ax = AxisSizes.from_mesh(layout)
+            device = device if device is not None else layout.device
         out = []
-        for path, tmpl in zip(paths, leaves):
+        for i, (path, tmpl) in enumerate(zip(paths, leaves)):
             entry = by_path.get(path)
             if entry is None:
                 raise TornCheckpointError(
@@ -226,7 +261,13 @@ class Checkpointer:
             where = device if device is not None else (
                 tmpl.device if isinstance(tmpl, torch.Tensor) and
                 tmpl.device.type != "meta" else "cpu")
-            out.append(_to_tensor(arr, entry["dtype"], where))
+            leaf = _to_tensor(arr, entry["dtype"], where)
+            if spec_leaves is not None:
+                from torch.distributed.tensor import distribute_tensor
+                leaf = distribute_tensor(
+                    leaf, ax.mesh, ax.placements(spec_leaves[i]),
+                    src_data_rank=None)
+            out.append(leaf)
         return _unflatten_like(template, out), manifest["metadata"]
 
     def restore_latest(self, template: PyTree, device: Device = None,

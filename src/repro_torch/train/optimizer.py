@@ -2,9 +2,10 @@
 
 The state trees keep the reference's keys, so a checkpoint names the
 same leaves in both packages: ``{"mu", "nu", "count"}`` for ``adamw``,
-``{"v": {…{"vr", "vc"} | {"v"}}, "count"}`` for ``adafactor``. The
-reference's ``state_specs`` (state PartitionSpecs for TPU sharding) has
-no counterpart: the port trains on one card.
+``{"v": {…{"vr", "vc"} | {"v"}}, "count"}`` for ``adafactor``.
+``state_specs`` maps the parameters' specs to the state's, as the
+reference's does; on DTensor parameters (a model on a mesh) ``init``
+places the state by the same rule, so each rank holds its shards.
 
 The reference's ``update`` is functional under ``jit`` with donated
 buffers. Here ``update`` works in place under ``torch.no_grad()``, one
@@ -20,6 +21,8 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from repro_torch.models.common import is_dtensor, placed_zeros
 
 __all__ = ["Optimizer", "adamw", "adafactor", "clip_by_global_norm",
            "global_norm", "get_optimizer", "tree_leaves", "tree_map"]
@@ -48,6 +51,8 @@ class Optimizer:
     init: Callable[[PyTree], PyTree]
     # (grads, state, params, lr) → (params, state), both updated in place
     update: Callable[[PyTree, PyTree, PyTree, float], Tuple[PyTree, PyTree]]
+    # The parameters' specs → the state's (the reference's state_specs).
+    state_specs: Callable[[PyTree], PyTree] = None
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -70,8 +75,32 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
     return tree_map(lambda g: _f32(g).mul_(scale), grads)
 
 
-def _zeros(shape, p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=p.device)
+def _zeros(shape, p: torch.Tensor, dims=None) -> torch.Tensor:
+    """float32 zeros of ``shape`` on ``p``'s device. For a DTensor ``p``
+    (a model on a mesh) the zeros are placed like ``p``: ``dims[i]`` is
+    the dimension of ``p`` that state dimension ``i`` keeps (all of
+    them by default), and a mesh axis that shards a dimension the state
+    drops is replicated — the reference's ``state_specs``."""
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    dims = list(range(p.dim())) if dims is None else list(dims)
+    placements = [Shard(dims.index(q.dim)) if isinstance(q, Shard)
+                  and q.dim in dims else Replicate() for q in p.placements]
+    return placed_zeros(shape, torch.float32, p.to_local().device,
+                        p.device_mesh, placements)
+
+
+def _counter(params) -> torch.Tensor:
+    """The step count, int32 0; replicated over the mesh of DTensor
+    parameters."""
+    leaf = tree_leaves(params)[0]
+    if not is_dtensor(leaf):
+        return torch.zeros((), dtype=torch.int32, device=leaf.device)
+    from torch.distributed.tensor import Replicate
+    return placed_zeros((), torch.int32, leaf.to_local().device,
+                        leaf.device_mesh,
+                        [Replicate()] * leaf.device_mesh.ndim)
 
 
 def _count(state) -> torch.Tensor:
@@ -85,11 +114,9 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           max_grad_norm: float = 1.0) -> Optimizer:
     def init(params):
         zeros = lambda p: _zeros(p.shape, p)
-        leaf = tree_leaves(params)[0]
         return {"mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params),
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=leaf.device)}
+                "count": _counter(params)}
 
     @torch.no_grad()
     def update(grads, state, params, step_lr):
@@ -106,7 +133,10 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
             p.copy_(_f32(p) - step_lr * step)
         return params, state
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        return {"mu": pspecs, "nu": pspecs, "count": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr: float = 1e-3, eps: float = 1e-30, decay: float = 0.8,
@@ -122,14 +152,13 @@ def adafactor(lr: float = 1e-3, eps: float = 1e-30, decay: float = 0.8,
 
     def init(params):
         def one(p):
+            n = p.dim()
             if _factored(p):
-                return {"vr": _zeros(p.shape[:-1], p),
-                        "vc": _zeros(p.shape[:-2] + p.shape[-1:], p)}
+                return {"vr": _zeros(p.shape[:-1], p, range(n - 1)),
+                        "vc": _zeros(p.shape[:-2] + p.shape[-1:], p,
+                                     list(range(n - 2)) + [n - 1])}
             return {"v": _zeros(p.shape, p)}
-        leaf = tree_leaves(params)[0]
-        return {"v": tree_map(one, params),
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=leaf.device)}
+        return {"v": tree_map(one, params), "count": _counter(params)}
 
     @torch.no_grad()
     def update(grads, state, params, step_lr):
@@ -155,7 +184,16 @@ def adafactor(lr: float = 1e-3, eps: float = 1e-30, decay: float = 0.8,
             p.copy_(_f32(p) - step_lr * precond)
         return params, state
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        def one(spec):
+            t = tuple(spec)
+            if len(t) >= min_factored_ndim:
+                return {"vr": t[:-1], "vc": t[:-2] + t[-1:]}
+            return {"v": t}
+
+        return {"v": tree_map(one, pspecs), "count": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def _state_leaves(vtree: PyTree, params: PyTree) -> List[Dict]:

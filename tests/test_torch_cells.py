@@ -103,10 +103,16 @@ def test_layouts():
                                                256)
     assert (two.shape, two.axes, two.size) == ((2, 16, 16),
                                                ("pod", "data", "model"), 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    # Without a process group of their size the pod layouts are
+    # descriptions: a cell on one raises, naming the group it needs.
+    assert pod.device is None and pod.mesh is None
+    with pytest.raises(ValueError, match="process group of 256 ranks"):
         cells.build_cell("gemma2_2b", "decode_32k", pod)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        hlo_analysis.analyze("a", "s", {"flops": 1.0, "bytes": 1.0}, 256)
+    # On 256 cards the counts are one card's: the global FLOPs and bytes
+    # are 256 times them, and the collective term is the card's own.
+    roof = hlo_analysis.analyze("a", "s", {"flops": 1.0, "bytes": 1.0},
+                                256)
+    assert roof.hlo_flops == 256.0 and roof.t_collective == 0.0
 
 
 DEPTH_CELLS = [("gemma2_2b", "prefill_32k"),

@@ -89,5 +89,35 @@ def test_dryrun_records_skips_and_refuses_pods(tmp_path):
                  "--out", str(tmp_path)])
     (rec,) = json.loads((tmp_path / "dryrun_card.json").read_text())
     assert rec["status"] == "skip" and "sub-quadratic" in rec["reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        dryrun.main(["--multi-pod", "--out", str(tmp_path)])
+    # The pod layouts run through the fake group, which is torn down.
+    dryrun.main(["--multi-pod", "--arch", "gemma2_2b", "--shape",
+                 "long_500k", "--out", str(tmp_path)])
+    (rec,) = json.loads((tmp_path / "dryrun_multipod.json").read_text())
+    assert rec["status"] == "skip" and rec["chips"] == 512
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_dryrun_workers_merge_and_resume(tmp_path, capsys):
+    """``--workers``: one process per architecture, their records merged
+    into the one file in the grid's order, the table printed; a rerun
+    starts no process for an architecture whose cells are all ok."""
+    argv = ["--workers", "4", "--shape", "long_500k", "--out",
+            str(tmp_path)]
+    recs = dryrun.main(argv)
+    from repro_torch.configs.base import ARCH_IDS
+    assert [r["arch"] for r in recs] == list(ARCH_IDS)
+    ok = {r["arch"] for r in recs if r["status"] == "ok"}
+    assert ok == {"jamba15_large_398b", "mamba2_130m"}
+    assert all(r["status"] == "skip" for r in recs if r["arch"] not in ok)
+    import torch
+    assert all(r["torch"] == torch.__version__ for r in recs)
+    assert json.loads((tmp_path / "dryrun_card.json").read_text()) == recs
+    assert "| mamba2_130m | 0.3 / 0.00, memo |" in capsys.readouterr().out
+    logs = {a: (tmp_path / "card_parts" / f"{a}.log").stat().st_mtime_ns
+            for a in ok}
+    again = dryrun.main(argv)
+    assert [r["status"] for r in again] == [r["status"] for r in recs]
+    for a, mtime in logs.items():
+        assert (tmp_path / "card_parts" / f"{a}.log").stat() \
+            .st_mtime_ns == mtime

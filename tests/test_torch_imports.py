@@ -139,8 +139,12 @@ def test_resolve_device_has_no_silent_cpu_fallback():
             compat.resolve_device()
         with pytest.raises(RuntimeError, match="not available"):
             compat.resolve_device("cuda")
-    with pytest.raises(NotImplementedError, match="lane splitter"):
-        compat.check_devices(2)
+    assert compat.resolve_devices(None) is None
+    assert compat.resolve_devices(1) is None
+    assert compat.resolve_devices(["cpu", "cpu"]) == [torch.device("cpu")] * 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA device\\(s\\) visible"):
+            compat.resolve_devices(2)
     import numpy as np
     assert compat.resolve_pack_dtype(None) == np.float32
     assert compat.resolve_pack_dtype(torch.float64) == np.float64

@@ -241,9 +241,10 @@ def test_scan_grids_rows_equal_reference(workloads, dtype, monkeypatch):
     # The grid really exercises the engine: FB kills, jobs complete.
     assert float(got["fb"]["kills"].sum()) > 0
     assert float(got["flb_nub"]["completed_jobs"].min()) > 100
-    with pytest.raises(NotImplementedError, match="lane splitter"):
-        scan.scan_grids(fb, flb, *packs, fb_spec=p_specs[0],
-                        flb_spec=p_specs[1], devices=2)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA device\\(s\\) visible"):
+            scan.scan_grids(fb, flb, *packs, fb_spec=p_specs[0],
+                            flb_spec=p_specs[1], devices=2)
 
 
 def test_scan_options_dt_and_chunk_len_equal_reference(workloads):

@@ -155,8 +155,9 @@ def test_sweep_modes_devices_and_fallbacks(workload):
                      device="cpu")[0]["engine"] == "scan"
     with pytest.raises(ValueError, match="unknown mode"):
         run_sweep([fb], jobs, ws, HORIZON, mode="fast", device="cpu")
-    with pytest.raises(NotImplementedError, match="lane splitter"):
-        run_sweep([fb], jobs, ws, HORIZON, devices=2, device="cpu")
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA device\\(s\\) visible"):
+            run_sweep([fb], jobs, ws, HORIZON, devices=2, device="cpu")
     with pytest.raises(ValueError, match="kernel=\"cuda\" needs CUDA"):
         run_sweep([fb], jobs, ws, HORIZON, device="cpu",
                   scan_options=ScanOptions(kernel="cuda"))

@@ -1,0 +1,7 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+rates, at the full 700 W power limit). A roofline share is stated
+against these, with the card's power limit beside it (the traced run's
+``power_limit``)."""
+
+FP32_FLOPS = 67e12          # float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12

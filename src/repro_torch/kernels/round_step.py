@@ -38,7 +38,8 @@ they raise on CPU tensors (there is no kernel for the CPU:
 ``RoundsSpec.kernel`` chooses the plain version there).
 :func:`outer_steps` reads the outer steps the ``run_rounds`` launches
 made (the largest lane count of each, summed): the launches the
-one-step path would have made for the same work.
+one-step path would have made for the same work. :func:`busiest_lane_steps`
+holds the last launch's count, on the device.
 """
 
 from __future__ import annotations
@@ -287,8 +288,9 @@ chunk_step.launches = 0
 
 # Per device: the outer steps of the run_rounds launches (the largest
 # lane count of each launch, summed on the device, so counting needs no
-# host sync).
+# host sync), and the last launch's largest lane count.
 _OUTER_STEPS: Dict[torch.device, torch.Tensor] = {}
+_BUSIEST: Dict[torch.device, torch.Tensor] = {}
 
 
 def run_rounds(jobs, rises, wstab, prm, sc, win, *, policy: str,
@@ -322,9 +324,12 @@ def run_rounds(jobs, rises, wstab, prm, sc, win, *, policy: str,
                            + lib.round_step_error_string(err).decode())
     run_rounds.launches += 1
     if sc.shape[0]:
+        busiest = _BUSIEST[sc.device] = steps.max()
         total = _OUTER_STEPS.setdefault(
             sc.device, torch.zeros((), dtype=torch.int64, device=sc.device))
-        total += steps.max()
+        total += busiest
+    else:
+        _BUSIEST.pop(sc.device, None)
     return sc_out, win_out, steps
 
 
@@ -336,6 +341,13 @@ def outer_steps() -> int:
     :func:`zero_outer_steps`: per launch the count of its busiest lane,
     summed (it synchronises with the devices)."""
     return sum(int(v) for v in _OUTER_STEPS.values())
+
+
+def busiest_lane_steps(device: torch.device) -> Optional[torch.Tensor]:
+    """The outer steps of the busiest lane of the last :func:`run_rounds`
+    launch on ``device``, a 0-d tensor there (read without a host sync);
+    None before any launch with lanes."""
+    return _BUSIEST.get(device)
 
 
 def zero_outer_steps() -> None:

@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, spans
 from repro_torch.core.jobs import Job
 from repro_torch.core.profiles import step_points
 from repro_torch.sim.scan import (FBGrid, FLBGrid, _lane_prm_tree,
@@ -164,9 +164,11 @@ def _to_pack(arrays: Dict[str, np.ndarray],
              device: torch.device) -> PackedEventWorkloads:
     """The pack of the fields ``arrays`` holds (the fault tables are
     optional)."""
-    return PackedEventWorkloads(**{
-        k: torch.from_numpy(np.array(v, order="C")).to(device)
-        for k, v in arrays.items()})
+    with spans.span("rounds.to_device", bytes=sum(
+            np.asarray(v).nbytes for v in arrays.values())):
+        return PackedEventWorkloads(**{
+            k: torch.from_numpy(np.array(v, order="C")).to(device)
+            for k, v in arrays.items()})
 
 
 def from_reference_pack(pk: Dict[str, np.ndarray],
@@ -260,61 +262,62 @@ def ws_fold_tables_batch(times: np.ndarray, values: np.ndarray,
     levels = np.asarray(levels, np.float64)
     W, N = values.shape
     P = len(leases)
-    edges = np.minimum(np.append(times[1:], duration), duration)
-    widths = np.maximum(edges - np.minimum(times, duration), 0.0)   # (N,)
-    if failed is not None and policy != "fb":
-        raise ValueError("time-varying failed capacity is FB-only "
-                         "(FLB-NUB's WS share is elastic)")
-    if policy == "fb":
-        cap = levels[None, :, None]
-        if failed is not None:
-            failed = np.asarray(failed, np.float64)
-            cap = np.maximum(cap - failed[None, None, :], 0.0)
-        share = np.minimum(values[:, None, :], cap)
-    else:
-        share = np.maximum(values[:, None, :] - levels[None, :, None],
-                           0.0)                                 # (W, P, N)
-    # (W, P, N) @ (N,) runs the same (P, N) GEMV per lane as the
-    # reference loop, keeping the integral bit-identical for every W.
-    integral = share @ widths
-    nt = max(int(np.ceil(duration / leases.min())), 1) + 1
-    n_win = np.maximum(np.ceil(duration / leases).astype(np.int64), 1)
-    win_edges = np.arange(nt)[None, :] * leases[:, None]        # (P, NT)
-    # The segment covering each window boundary (right-continuous).
-    bidx = (np.searchsorted(times, win_edges.ravel(), "right")
-            .reshape(P, nt) - 1)
-    at_tick = values[:, bidx]                                   # (W, P, NT)
-    winmax = np.take_along_axis(
-        share, np.broadcast_to(bidx, (W, P, nt)), axis=2).copy()
-    # Segment max of the interior change points, grouped by window
-    # index: flattening (p, window) into one composite, strictly sorted
-    # grouping makes the groups contiguous runs of the (P·N) axis, so
-    # one reduceat covers all points. reduceat's empty-segment quirk (it
-    # returns the start element) is masked off via the run lengths.
-    interior = times < duration
-    ii = np.nonzero(interior)[0]
-    if ii.size:
-        M = ii.size
-        widx = np.minimum((times[ii][None, :]
-                           // leases[:, None]).astype(np.int64),
-                          nt - 1)                               # (P, M)
-        flat_groups = (np.arange(P)[:, None] * nt + widx).ravel()
-        starts = np.searchsorted(flat_groups, np.arange(P * nt), "left")
-        counts = np.append(np.diff(starts), P * M - starts[-1])
-        # A trailing -inf sentinel keeps every start index valid.
-        share_flat = np.concatenate(
-            [share[:, :, ii].reshape(W, P * M),
-             np.full((W, 1), -np.inf)], axis=1)
-        seg = np.maximum.reduceat(share_flat, starts, axis=1)
-        seg = np.where(counts[None, :] > 0, seg, -np.inf)
-        winmax = np.maximum(winmax, seg.reshape(W, P, nt))
-    # A point's windows end at n_win = ceil(duration / L): entry n_win
-    # is the degenerate horizon-boundary probe; entries past it stay
-    # zero like the reference's.
-    live = np.arange(nt)[None, :] <= n_win[:, None]             # (P, NT)
-    winmax = np.where(live[None], winmax, 0.0)
-    at_tick = np.where(live[None], at_tick, 0.0)
-    return integral, winmax, at_tick
+    with spans.span("rounds.fold_tables", lanes=W, points=P):
+        edges = np.minimum(np.append(times[1:], duration), duration)
+        widths = np.maximum(edges - np.minimum(times, duration), 0.0)   # (N,)
+        if failed is not None and policy != "fb":
+            raise ValueError("time-varying failed capacity is FB-only "
+                             "(FLB-NUB's WS share is elastic)")
+        if policy == "fb":
+            cap = levels[None, :, None]
+            if failed is not None:
+                failed = np.asarray(failed, np.float64)
+                cap = np.maximum(cap - failed[None, None, :], 0.0)
+            share = np.minimum(values[:, None, :], cap)
+        else:
+            share = np.maximum(values[:, None, :] - levels[None, :, None],
+                               0.0)                                 # (W, P, N)
+        # (W, P, N) @ (N,) runs the same (P, N) GEMV per lane as the
+        # reference loop, keeping the integral bit-identical for every W.
+        integral = share @ widths
+        nt = max(int(np.ceil(duration / leases.min())), 1) + 1
+        n_win = np.maximum(np.ceil(duration / leases).astype(np.int64), 1)
+        win_edges = np.arange(nt)[None, :] * leases[:, None]        # (P, NT)
+        # The segment covering each window boundary (right-continuous).
+        bidx = (np.searchsorted(times, win_edges.ravel(), "right")
+                .reshape(P, nt) - 1)
+        at_tick = values[:, bidx]                               # (W, P, NT)
+        winmax = np.take_along_axis(
+            share, np.broadcast_to(bidx, (W, P, nt)), axis=2).copy()
+        # Segment max of the interior change points, grouped by window
+        # index: flattening (p, window) into one composite, strictly sorted
+        # grouping makes the groups contiguous runs of the (P·N) axis, so
+        # one reduceat covers all points. reduceat's empty-segment quirk (it
+        # returns the start element) is masked off via the run lengths.
+        interior = times < duration
+        ii = np.nonzero(interior)[0]
+        if ii.size:
+            M = ii.size
+            widx = np.minimum((times[ii][None, :]
+                               // leases[:, None]).astype(np.int64),
+                              nt - 1)                               # (P, M)
+            flat_groups = (np.arange(P)[:, None] * nt + widx).ravel()
+            starts = np.searchsorted(flat_groups, np.arange(P * nt), "left")
+            counts = np.append(np.diff(starts), P * M - starts[-1])
+            # A trailing -inf sentinel keeps every start index valid.
+            share_flat = np.concatenate(
+                [share[:, :, ii].reshape(W, P * M),
+                 np.full((W, 1), -np.inf)], axis=1)
+            seg = np.maximum.reduceat(share_flat, starts, axis=1)
+            seg = np.where(counts[None, :] > 0, seg, -np.inf)
+            winmax = np.maximum(winmax, seg.reshape(W, P, nt))
+        # A point's windows end at n_win = ceil(duration / L): entry n_win
+        # is the degenerate horizon-boundary probe; entries past it stay
+        # zero like the reference's.
+        live = np.arange(nt)[None, :] <= n_win[:, None]             # (P, NT)
+        winmax = np.where(live[None], winmax, 0.0)
+        at_tick = np.where(live[None], at_tick, 0.0)
+        return integral, winmax, at_tick
 
 
 @functools.lru_cache(maxsize=256)
@@ -865,30 +868,35 @@ def _simulate_rounds(policy: str, prm: Dict, pk: PackedEventWorkloads,
     predicate fails."""
     from repro_torch.kernels import round_step as rsk
     kernel = spec.resolve_kernel(pk.device, pk.fault_times is not None)
-    ctx = _lane_ctx(policy, prm, pk)
     f = pk.submit.dtype
     w_idx, p_idx = prm["w_idx"], prm["p_idx"]
-    sc, win = _startup(policy, ctx, spec, pk.ws0[w_idx])
-    ftab = rsk.fault_table(ctx)
-    jobs, rises, wstab, prmv = rsk.lane_inputs(policy, ctx, ftab)
-    outer_max = -(-spec.max_rounds // spec.compact_every)
-    dur = torch.tensor(spec.duration, dtype=f, device=sc.device)
-    if kernel == "cuda":
-        sc, win, _ = rsk.run_rounds(jobs, rises, wstab, prmv, sc, win,
-                                    policy=policy, spec=spec,
-                                    outer_max=outer_max)
-    else:
-        i = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
-        while True:
-            live = (i < outer_max) & (sc[:, rsk.SC_T] < dur)
-            if not bool(live.any()):
-                break
-            sc_n, win_n = rsk.chunk_step_ref(jobs, rises, wstab, prmv, sc,
-                                             win, policy=policy, spec=spec,
-                                             ftab=ftab)
-            sc = torch.where(live[:, None], sc_n, sc)
-            win = torch.where(live[:, None, None], win_n, win)
-            i = i + live.to(torch.int32)
+    with spans.span("rounds.startup"):
+        ctx = _lane_ctx(policy, prm, pk)
+        sc, win = _startup(policy, ctx, spec, pk.ws0[w_idx])
+        ftab = rsk.fault_table(ctx)
+        jobs, rises, wstab, prmv = rsk.lane_inputs(policy, ctx, ftab)
+        outer_max = -(-spec.max_rounds // spec.compact_every)
+        dur = torch.tensor(spec.duration, dtype=f, device=sc.device)
+    with spans.span("rounds.steps", lanes=sc.shape[0]) as steps_span:
+        if kernel == "cuda":
+            sc, win, _ = rsk.run_rounds(jobs, rises, wstab, prmv, sc, win,
+                                        policy=policy, spec=spec,
+                                        outer_max=outer_max)
+            steps_span.set(outer_steps=rsk.busiest_lane_steps(sc.device))
+        else:
+            i = torch.zeros(sc.shape[0], dtype=torch.int32,
+                            device=sc.device)
+            while True:
+                live = (i < outer_max) & (sc[:, rsk.SC_T] < dur)
+                if not bool(live.any()):
+                    break
+                sc_n, win_n = rsk.chunk_step_ref(
+                    jobs, rises, wstab, prmv, sc, win, policy=policy,
+                    spec=spec, ftab=ftab)
+                sc = torch.where(live[:, None], sc_n, sc)
+                win = torch.where(live[:, None, None], win_n, win)
+                i = i + live.to(torch.int32)
+            steps_span.set(outer_steps=i.max() if len(i) else 0)
     t_end = sc[:, rsk.SC_T]
     acc = {k: sc[:, rsk.SC_ACC0 + j] for j, k in enumerate(ACC_KEYS)}
     n_done = torch.clamp_min(acc["completed"], 1.0)

@@ -47,7 +47,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, spans
 from repro_torch.compat import resolve_pack_dtype
 from repro_torch.core.jobs import Job
 from repro_torch.sim.rounds import (PackedEventWorkloads, _to_pack,
@@ -360,30 +360,36 @@ def synthesize(grid: ScenarioGrid,
     once."""
     dev = compat.resolve_device(device)
     W = grid.n_lanes
-    pbj = _lane_params(_broadcast_params(grid.pbj, W), dev)
-    wsp = _lane_params(_broadcast_params(grid.ws, W), dev)
-    probs = torch.from_numpy(np.array(
-        _broadcast_params(grid.pbj, W).size_probs, np.float32))
-    pbj_draws, ws_draws = [], []
-    for w, (s_pbj, s_ws) in enumerate(lane_keys(grid.seeds)):
-        g = torch.Generator().manual_seed(int(s_pbj))
-        pbj_draws.append(_pbj_draws(g, probs[w], grid.max_jobs))
-        g = torch.Generator().manual_seed(int(s_ws))
-        ws_draws.append(_ws_draws(g, grid.n_ws_steps, grid.ws_step))
-    stack = lambda ds: {k: torch.stack([d[k] for d in ds]).to(dev)
-                        for k in ds[0]}
-    submit, size, runtime, n_jobs = _pbj_from_draws(
-        stack(pbj_draws), pbj, max_jobs=grid.max_jobs,
-        duration=float(grid.duration))
-    ws_vals = _ws_from_draws(stack(ws_draws), wsp, n_steps=grid.n_ws_steps,
-                             step_seconds=float(grid.ws_step))
-    ws_times = np.arange(grid.n_ws_steps, dtype=np.float64) * grid.ws_step
-    return SynthesizedBatch(submit=submit.cpu().numpy(),
-                            size=size.cpu().numpy(),
-                            runtime=runtime.cpu().numpy(),
-                            n_jobs=n_jobs.cpu().numpy(), ws_times=ws_times,
-                            ws_values=ws_vals.cpu().numpy(),
-                            duration=float(grid.duration))
+    with spans.span("scenarios.synthesize", lanes=W):
+        pbj = _lane_params(_broadcast_params(grid.pbj, W), dev)
+        wsp = _lane_params(_broadcast_params(grid.ws, W), dev)
+        probs = torch.from_numpy(np.array(
+            _broadcast_params(grid.pbj, W).size_probs, np.float32))
+        with spans.span("scenarios.draws"):
+            pbj_draws, ws_draws = [], []
+            for w, (s_pbj, s_ws) in enumerate(lane_keys(grid.seeds)):
+                g = torch.Generator().manual_seed(int(s_pbj))
+                pbj_draws.append(_pbj_draws(g, probs[w], grid.max_jobs))
+                g = torch.Generator().manual_seed(int(s_ws))
+                ws_draws.append(_ws_draws(g, grid.n_ws_steps, grid.ws_step))
+        with spans.span("scenarios.transforms"):
+            stack = lambda ds: {k: torch.stack([d[k] for d in ds]).to(dev)
+                                for k in ds[0]}
+            submit, size, runtime, n_jobs = _pbj_from_draws(
+                stack(pbj_draws), pbj, max_jobs=grid.max_jobs,
+                duration=float(grid.duration))
+            ws_vals = _ws_from_draws(stack(ws_draws), wsp,
+                                     n_steps=grid.n_ws_steps,
+                                     step_seconds=float(grid.ws_step))
+            ws_times = (np.arange(grid.n_ws_steps, dtype=np.float64)
+                        * grid.ws_step)
+            return SynthesizedBatch(submit=submit.cpu().numpy(),
+                                    size=size.cpu().numpy(),
+                                    runtime=runtime.cpu().numpy(),
+                                    n_jobs=n_jobs.cpu().numpy(),
+                                    ws_times=ws_times,
+                                    ws_values=ws_vals.cpu().numpy(),
+                                    duration=float(grid.duration))
 
 
 def pack_scenarios(synth: SynthesizedBatch, window: int, policy: str,

@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, spans
 from repro_torch.core.jobs import Job
 from repro_torch.core.pbj_manager import PBJPolicyParams
 from repro_torch.core.profiles import step_integral, step_points
@@ -473,23 +473,26 @@ def _pack_rounds(points: List[SweepPoint],
 
     fb = flb = fb_packs = flb_packs = fb_spec = flb_spec = None
     if fb_idx:
-        leases = [points[i].lease_seconds for i in fb_idx]
-        fb_spec = options.resolve_rounds("fb", leases, duration,
-                                         max_jobs, n_ws)
-        fb_packs = roundslib.pack_event_workloads(
-            workloads, duration, fb_spec.window, "fb", leases,
-            [float(points[i].capacity) for i in fb_idx],
-            dtype=options.dtype, split=True, device=device)
-        fb = _fb_grid(points, fb_idx, fb_packs[0].submit.dtype, device)
+        with spans.span("sweep.pack", policy="fb"):
+            leases = [points[i].lease_seconds for i in fb_idx]
+            fb_spec = options.resolve_rounds("fb", leases, duration,
+                                             max_jobs, n_ws)
+            fb_packs = roundslib.pack_event_workloads(
+                workloads, duration, fb_spec.window, "fb", leases,
+                [float(points[i].capacity) for i in fb_idx],
+                dtype=options.dtype, split=True, device=device)
+            fb = _fb_grid(points, fb_idx, fb_packs[0].submit.dtype, device)
     if flb_idx:
-        leases = [points[i].lease_seconds for i in flb_idx]
-        flb_spec = options.resolve_rounds("flb_nub", leases, duration,
-                                          max_jobs, n_ws)
-        flb_packs = roundslib.pack_event_workloads(
-            workloads, duration, flb_spec.window, "flb_nub", leases,
-            [float(points[i].lb_ws) for i in flb_idx],
-            dtype=options.dtype, split=True, device=device)
-        flb = _flb_grid(points, flb_idx, flb_packs[0].submit.dtype, device)
+        with spans.span("sweep.pack", policy="flb_nub"):
+            leases = [points[i].lease_seconds for i in flb_idx]
+            flb_spec = options.resolve_rounds("flb_nub", leases, duration,
+                                              max_jobs, n_ws)
+            flb_packs = roundslib.pack_event_workloads(
+                workloads, duration, flb_spec.window, "flb_nub", leases,
+                [float(points[i].lb_ws) for i in flb_idx],
+                dtype=options.dtype, split=True, device=device)
+            flb = _flb_grid(points, flb_idx, flb_packs[0].submit.dtype,
+                            device)
     return fb_idx, flb_idx, fb, flb, fb_packs, flb_packs, fb_spec, flb_spec
 
 
@@ -513,13 +516,15 @@ def _sweep_rounds(points: List[SweepPoint],
         flb_packs[w] if flb_packs is not None else None,
         fb_spec=fb_spec, flb_spec=flb_spec, devices=options.devices)
         for w in range(len(workloads))]
-    out = {kind: {k: np.concatenate([o[kind][k].cpu().numpy()
-                                     for o in outs])
-                  for k in outs[0][kind]}
-           for kind in outs[0]}
-    rows = _assemble_rows(points, fb_idx, flb_idx, out, len(workloads),
-                          "rounds")
-    _warn_diagnostics(rows, "rounds", stacklevel=warn_stacklevel)
+    with spans.span("sweep.rows", rows=len(workloads) * len(points)):
+        with spans.span("sweep.wait"):
+            out = {kind: {k: np.concatenate([o[kind][k].cpu().numpy()
+                                             for o in outs])
+                          for k in outs[0][kind]}
+                   for kind in outs[0]}
+        rows = _assemble_rows(points, fb_idx, flb_idx, out, len(workloads),
+                              "rounds")
+        _warn_diagnostics(rows, "rounds", stacklevel=warn_stacklevel)
     return rows
 
 
@@ -537,23 +542,26 @@ def _pack_scenarios_grids(points: List[SweepPoint], grid, synth,
 
     fb = flb = fb_packed = flb_packed = fb_spec = flb_spec = None
     if fb_idx:
-        leases = [points[i].lease_seconds for i in fb_idx]
-        fb_spec = options.resolve_rounds("fb", leases, duration,
-                                         grid.max_jobs, n_ws)
-        fb_packed = scenarioslib.pack_scenarios(
-            synth, fb_spec.window, "fb", leases,
-            [float(points[i].capacity) for i in fb_idx],
-            dtype=options.dtype, device=device)
-        fb = _fb_grid(points, fb_idx, fb_packed.submit.dtype, device)
+        with spans.span("sweep.pack", policy="fb"):
+            leases = [points[i].lease_seconds for i in fb_idx]
+            fb_spec = options.resolve_rounds("fb", leases, duration,
+                                             grid.max_jobs, n_ws)
+            fb_packed = scenarioslib.pack_scenarios(
+                synth, fb_spec.window, "fb", leases,
+                [float(points[i].capacity) for i in fb_idx],
+                dtype=options.dtype, device=device)
+            fb = _fb_grid(points, fb_idx, fb_packed.submit.dtype, device)
     if flb_idx:
-        leases = [points[i].lease_seconds for i in flb_idx]
-        flb_spec = options.resolve_rounds("flb_nub", leases, duration,
-                                          grid.max_jobs, n_ws)
-        flb_packed = scenarioslib.pack_scenarios(
-            synth, flb_spec.window, "flb_nub", leases,
-            [float(points[i].lb_ws) for i in flb_idx],
-            dtype=options.dtype, device=device)
-        flb = _flb_grid(points, flb_idx, flb_packed.submit.dtype, device)
+        with spans.span("sweep.pack", policy="flb_nub"):
+            leases = [points[i].lease_seconds for i in flb_idx]
+            flb_spec = options.resolve_rounds("flb_nub", leases, duration,
+                                              grid.max_jobs, n_ws)
+            flb_packed = scenarioslib.pack_scenarios(
+                synth, flb_spec.window, "flb_nub", leases,
+                [float(points[i].lb_ws) for i in flb_idx],
+                dtype=options.dtype, device=device)
+            flb = _flb_grid(points, flb_idx, flb_packed.submit.dtype,
+                            device)
     return (fb_idx, flb_idx, fb, flb, fb_packed, flb_packed, fb_spec,
             flb_spec)
 
@@ -580,9 +588,12 @@ def _sweep_rounds_generated(points: List[SweepPoint], grid,
     out = roundslib.rounds_grids(fb, flb, fb_packed, flb_packed,
                                  fb_spec=fb_spec, flb_spec=flb_spec,
                                  devices=options.devices)
-    rows = _assemble_rows(points, fb_idx, flb_idx, _to_numpy(out),
-                          grid.n_lanes, "rounds")
-    _warn_diagnostics(rows, "rounds", stacklevel=warn_stacklevel)
+    with spans.span("sweep.rows", rows=grid.n_lanes * len(points)):
+        with spans.span("sweep.wait"):
+            out = _to_numpy(out)
+        rows = _assemble_rows(points, fb_idx, flb_idx, out, grid.n_lanes,
+                              "rounds")
+        _warn_diagnostics(rows, "rounds", stacklevel=warn_stacklevel)
     return rows
 
 
@@ -650,91 +661,95 @@ def run_sweep_workloads(points: Sequence[SweepPoint],
     """
     dev = compat.resolve_device(device)
     mode = _resolve_mode(mode, vectorize)
-    # warnings.warn stack depth from inside _warn_diagnostics:
-    # 1 = _warn_diagnostics, 2 = _sweep_*, 3 = this function,
-    # 4 = our caller — plus any wrapper frames above us.
-    warn_stacklevel = 4 + _stack_offset
-    if devices is not None:
-        scan_options = dataclasses.replace(scan_options, devices=devices)
-    compat.resolve_devices(scan_options.devices)
-    if isinstance(workloads, scenarioslib.ScenarioGrid):
-        # Generated scenario batches (seeds + param grids, not
-        # List[Job]) flow the event-round engine only: the lanes share
-        # one dense WS grid and job-table height, so the whole (W × P)
-        # batch is one program. The grid carries its own horizon.
-        if mode not in ("auto", "rounds"):
+    with spans.span("sweep", mode=mode) as sweep_span:
+        # warnings.warn stack depth from inside _warn_diagnostics:
+        # 1 = _warn_diagnostics, 2 = _sweep_*, 3 = this function,
+        # 4 = our caller — plus any wrapper frames above us.
+        warn_stacklevel = 4 + _stack_offset
+        if devices is not None:
+            scan_options = dataclasses.replace(scan_options, devices=devices)
+        compat.resolve_devices(scan_options.devices)
+        if isinstance(workloads, scenarioslib.ScenarioGrid):
+            # Generated scenario batches (seeds + param grids, not
+            # List[Job]) flow the event-round engine only: the lanes share
+            # one dense WS grid and job-table height, so the whole (W × P)
+            # batch is one program. The grid carries its own horizon.
+            sweep_span.set(lanes=workloads.n_lanes * len(points))
+            if mode not in ("auto", "rounds"):
+                raise ValueError(
+                    f"generated scenario batches run the rounds engine only "
+                    f"(mode 'auto'/'rounds', got {mode!r})")
+            if duration is not None and duration != workloads.duration:
+                raise ValueError(
+                    "duration is fixed by ScenarioGrid.duration — pass None")
+            bad = sorted({p.system for p in points
+                          if p.system not in _SCANNABLE})
+            if bad:
+                raise ValueError(
+                    f"generated scenario batches support FB / FLB-NUB points "
+                    f"only, got {bad}; evaluate DCS/EC2 baselines on "
+                    f"sampled lanes (repro_torch.sim.scenarios."
+                    f"sample_workloads)")
+            return _sweep_rounds_generated(list(points), workloads,
+                                           scan_options,
+                                           warn_stacklevel=warn_stacklevel,
+                                           device=dev)
+        if not isinstance(workloads, (list, tuple)):
             raise ValueError(
-                f"generated scenario batches run the rounds engine only "
-                f"(mode 'auto'/'rounds', got {mode!r})")
-        if duration is not None and duration != workloads.duration:
-            raise ValueError(
-                "duration is fixed by ScenarioGrid.duration — pass None")
-        bad = sorted({p.system for p in points
-                      if p.system not in _SCANNABLE})
-        if bad:
-            raise ValueError(
-                f"generated scenario batches support FB / FLB-NUB points "
-                f"only, got {bad}; evaluate DCS/EC2 baselines on "
-                f"sampled lanes (repro_torch.sim.scenarios."
-                f"sample_workloads)")
-        return _sweep_rounds_generated(list(points), workloads,
-                                       scan_options,
-                                       warn_stacklevel=warn_stacklevel,
-                                       device=dev)
-    if not isinstance(workloads, (list, tuple)):
-        raise ValueError(
-            "workloads must be a list of (jobs, ws_trace) pairs or a "
-            "ScenarioGrid")
-    if duration is None:
-        duration = max(default_duration(jobs, ws) for jobs, ws in workloads)
-    rows: List[List[Optional[Dict]]] = [
-        [None] * len(points) for _ in workloads]
+                "workloads must be a list of (jobs, ws_trace) pairs or a "
+                "ScenarioGrid")
+        sweep_span.set(lanes=len(workloads) * len(points))
+        if duration is None:
+            duration = max(default_duration(jobs, ws)
+                           for jobs, ws in workloads)
+        rows: List[List[Optional[Dict]]] = [
+            [None] * len(points) for _ in workloads]
 
-    if mode != "event":
-        dcs_idx = [i for i, p in enumerate(points) if p.system == "dcs"]
-        ec2_idx = [i for i, p in enumerate(points) if p.system == "ec2"]
+        if mode != "event":
+            dcs_idx = [i for i, p in enumerate(points) if p.system == "dcs"]
+            ec2_idx = [i for i, p in enumerate(points) if p.system == "ec2"]
+            for w, (jobs, ws_trace) in enumerate(workloads):
+                if dcs_idx:
+                    for i, row in zip(dcs_idx,
+                                      _sweep_dcs([points[i] for i in dcs_idx],
+                                                 duration)):
+                        rows[w][i] = row
+                if ec2_idx:
+                    for i, row in zip(ec2_idx,
+                                      _sweep_ec2([points[i] for i in ec2_idx],
+                                                 jobs, ws_trace, duration,
+                                                 dev)):
+                        rows[w][i] = row
+
+        if mode in ("auto", "scan", "rounds"):
+            batch_idx = [i for i, p in enumerate(points)
+                         if p.system in _SCANNABLE]
+            if mode == "auto":
+                # Points the rounds engine rejects (FB checkpoint_preempt)
+                # take the per-point event path below instead of failing.
+                batch_idx = [i for i in batch_idx
+                             if not (points[i].system == "fb"
+                                     and points[i].params.checkpoint_preempt)]
+            fast = _sweep_scan if mode == "scan" else _sweep_rounds
+            if batch_idx:
+                fast_rows = fast([points[i] for i in batch_idx], workloads,
+                                 duration, scan_options, dev,
+                                 warn_stacklevel=warn_stacklevel)
+                for w in range(len(workloads)):
+                    for j, i in enumerate(batch_idx):
+                        rows[w][i] = fast_rows[w][j]
+
         for w, (jobs, ws_trace) in enumerate(workloads):
-            if dcs_idx:
-                for i, row in zip(dcs_idx,
-                                  _sweep_dcs([points[i] for i in dcs_idx],
-                                             duration)):
-                    rows[w][i] = row
-            if ec2_idx:
-                for i, row in zip(ec2_idx,
-                                  _sweep_ec2([points[i] for i in ec2_idx],
-                                             jobs, ws_trace, duration,
-                                             dev)):
-                    rows[w][i] = row
-
-    if mode in ("auto", "scan", "rounds"):
-        batch_idx = [i for i, p in enumerate(points)
-                     if p.system in _SCANNABLE]
-        if mode == "auto":
-            # Points the rounds engine rejects (FB checkpoint_preempt)
-            # take the per-point event path below instead of failing.
-            batch_idx = [i for i in batch_idx
-                         if not (points[i].system == "fb"
-                                 and points[i].params.checkpoint_preempt)]
-        fast = _sweep_scan if mode == "scan" else _sweep_rounds
-        if batch_idx:
-            fast_rows = fast([points[i] for i in batch_idx], workloads,
-                             duration, scan_options, dev,
-                             warn_stacklevel=warn_stacklevel)
-            for w in range(len(workloads)):
-                for j, i in enumerate(batch_idx):
-                    rows[w][i] = fast_rows[w][j]
-
-    for w, (jobs, ws_trace) in enumerate(workloads):
-        for i, p in enumerate(points):
-            if rows[w][i] is not None:
-                continue
-            r = run_sim(_build(p), clone_jobs(jobs), ws_trace, duration,
-                        name=p.name())
-            row = r.row()
-            row.update(system_kind=p.system, engine="event",
-                       lease_seconds=p.lease_seconds)
-            rows[w][i] = row
-    return rows                                   # type: ignore[return-value]
+            for i, p in enumerate(points):
+                if rows[w][i] is not None:
+                    continue
+                r = run_sim(_build(p), clone_jobs(jobs), ws_trace, duration,
+                            name=p.name())
+                row = r.row()
+                row.update(system_kind=p.system, engine="event",
+                           lease_seconds=p.lease_seconds)
+                rows[w][i] = row
+        return rows                               # type: ignore[return-value]
 
 
 def warmup_sweep(points: Sequence[SweepPoint],

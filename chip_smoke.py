@@ -5,9 +5,9 @@
 Phases, one JSON line each (any failure raises and exits nonzero):
 
   device           the card's name and power limit (nvidia-smi)
-  build            nvcc builds of the five kernels for sm_90a
+  build            nvcc builds of the six kernels for sm_90a
                    (round_step, flash_attention, flash_decode, ssd_scan,
-                   jaxsim), started together
+                   jaxsim, ws_fold), started together
   kernel_vs_plain  the FB and FLB-NUB lanes of paper_grid(128), packed
                    exactly as the sweep packs them (one pack per trace:
                    NASA iPSC and SDSC BLUE, each with WorldCup): the CUDA
@@ -212,7 +212,10 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    points, two weeks, 3000 jobs a lane, the scenario
                    benchmark's parameter ramps) through
                    run_sweep_workloads: 2 round_step launches (615 FB and
-                   410 FLB-NUB lanes); every lane's moments, a second
+                   410 FLB-NUB lanes) and 2 ws_fold launches (one pack
+                   per policy; the plain step folds on the host); both
+                   policies' fold tables equal to the host's build bit
+                   for bit; every lane's moments, a second
                    synthesis equal, the CPU's synthesis equal up to the
                    transforms' rounding, every row equal to the plain
                    step's on the same batch (counts exact, integrals rtol
@@ -221,6 +224,16 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    equal to the plain step's; synth /
                    pack / engine walls, outer steps, each launch's device
                    ms and bound
+  ws_fold          the fold tables of a generated batch at the Monte-Carlo
+                   cell's shape (256 fortnights of 300 s steps, FB C =
+                   128..248 step 8, L 3600 s, NT 337): the kernel (one
+                   launch) equal to its plain version on the card and to
+                   the host's numpy build (ws_fold_tables_batch) bit for
+                   bit, float64 and float32 packs; the kernel's device ms
+                   (CUDA events, calls queued behind a spin), its bound
+                   (tables written and the demand read once, at HBM
+                   bandwidth), the plain version's ms on the card and the
+                   host build's ms
   live             replay() of the live benchmark's nasa+worldcup lane
                    inside CONTRACTS["live"] of the event engine and equal
                    to the JAX package's row and counts, its synth_ws lane
@@ -302,7 +315,8 @@ Phases, one JSON line each (any failure raises and exits nonzero):
                    generate_mamba, ssd_scan_f32: serve_mamba); round_step per
                    one-launch run of the sweep, with its outer steps, the
                    one-step entry's time per launch and the same for the
-                   coalesced sweep, and the scenario batch's two runs; the
+                   coalesced sweep, and the scenario batch's two runs;
+                   ws_fold at the Monte-Carlo cell's shape; the
                    last two families' rows suffixed _whisper, _vision and
                    _jamba (flash_attention_f32_whisper: serve_whisper;
                    the bfloat16 rows: their generate phases;
@@ -354,6 +368,7 @@ from repro_torch.launch import cells, dryrun  # noqa: E402
 from repro_torch.launch import hlo_analysis as hlo  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
+from repro_torch.kernels import ws_fold as wsk  # noqa: E402
 from repro_torch.models import mlp as mlpmod  # noqa: E402
 from repro_torch.models.mamba2 import dims as ssm_dims  # noqa: E402
 from repro_torch.models.transformer import (FRONTEND_FAMILIES,  # noqa: E402
@@ -1563,10 +1578,12 @@ def scenarios_phase(device, smi):
     wall_s = time.perf_counter() - t0
     counts = read_counts()
     steps = rsk.outer_steps()
-    if counts["round_step"] != 2 or any(v for k, v in counts.items()
-                                        if k != "round_step"):
+    if counts["round_step"] != 2 or counts["ws_fold"] != 2 or any(
+            v for k, v in counts.items() if k not in ("round_step",
+                                                      "ws_fold")):
         raise AssertionError(f"the scenario batch's launches: {counts}, "
-                             f"expected 2 round_step runs")
+                             f"expected 2 round_step runs and 2 ws_fold "
+                             f"launches (one pack per policy)")
     truncated = [r["system"] for rs in rows for r in rs if r["truncated"]]
     if truncated:
         raise AssertionError(f"scenario rows truncated: {truncated}")
@@ -1626,12 +1643,31 @@ def scenarios_phase(device, smi):
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     plain_counts = read_counts()
+    # The plain step folds on the host and launches nothing.
     if any(plain_counts.values()):
         raise AssertionError(f"the plain step launched kernels: "
                              f"{plain_counts}")
     for w in range(W):
         rows_equal(rows[w], plain[w], INTEGRAL_RTOL[torch.float32],
                    f"scenarios width 1024 lane {w}")
+    # The fold tables of both policies' packs (FLB-NUB's leases mixed)
+    # from the kernel against the host's build, bit for bit.
+    packs = {}
+    for name, opts in (("kernel", ScanOptions()),
+                       ("plain", ScanOptions(kernel="torch"))):
+        zero_counts()
+        packs[name] = sweeplib._pack_scenarios_grids(points, grid, synth,
+                                                     opts, device)[4:6]
+        torch.cuda.synchronize()
+        want = 2 if name == "kernel" else 0
+        if read_counts()["ws_fold"] != want:
+            raise AssertionError(f"the {name} packs' ws_fold launches: "
+                                 f"{read_counts()}, expected {want}")
+    for policy, got, host in zip(("fb", "flb_nub"), *packs.values()):
+        for f in ("ws_integral", "ws_winmax", "ws_at_tick"):
+            if not torch.equal(getattr(got, f), getattr(host, f)):
+                raise AssertionError(f"scenarios {policy} {f}: the kernel's "
+                                     f"fold differs from the host's")
     # Sampled lanes against the event engine (CONTRACTS["rounds"]).
     sample = sorted({0, W // 2, W - 1})
     t0 = time.perf_counter()
@@ -1673,6 +1709,7 @@ def scenarios_phase(device, smi):
                     "close": True},
          plain_width_1024={"wall_s": plain_s, "rows_equal": True,
                            "kernel_launches": plain_counts},
+         fold_tables_equal_host=True,
          window_overflow_at=[[w, points[i].label] for w in range(W)
                              for i in range(len(points))
                              if rows[w][i]["window_overflow"] > 0],
@@ -1683,7 +1720,75 @@ def scenarios_phase(device, smi):
                    "plain_wall_s": walls["plain"], "rows_equal": True},
          rows_lane0=rows[0])
     return dict(launches=counts["round_step"], outer_steps=steps,
-                per_launch=per_launch)
+                per_launch=per_launch, fold_launches=counts["ws_fold"])
+
+
+# ------------------------------------------- a generated batch's fold tables
+
+# The Monte-Carlo cell's shape (portbench's ipsc_wc98.mc_fb): 256
+# fortnights of 300 s WS steps (peak 128 VMs), 16 FB capacities C = 128..248
+# at a 3600 s lease.
+FOLD_LANES = 256
+FOLD_LEVELS = tuple(float(c) for c in range(128, 249, 8))
+FOLD_LEASE = 3600.0
+
+
+def ws_fold_phase(device, smi):
+    """The fold tables of a generated batch at the Monte-Carlo cell's
+    shape on the card: the kernel's one launch against its plain version
+    on the card and the host's numpy build, bit for bit, for a float64
+    and a float32 pack; the kernel's device ms, its bound, the plain
+    version's and the host build's ms."""
+    grid = scenarioslib.ScenarioGrid(seeds=tuple(range(FOLD_LANES)),
+                                     ws=scenarioslib.WSParams(peak=128.0))
+    synth = scenarioslib.synthesize(grid, device)
+    times, values = synth.ws_times, synth.ws_values
+    leases = np.full(len(FOLD_LEVELS), FOLD_LEASE)
+    levels = np.asarray(FOLD_LEVELS)
+    W, N, P = values.shape[0], len(times), len(levels)
+    nt = wsk.table_width(grid.duration, leases)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = roundslib.ws_fold_tables_batch(times, values, grid.duration,
+                                              "fb", leases, levels)
+        host_s.append(time.perf_counter() - t0)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    args = (on(times), on(values), on(leases), on(levels))
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        kw = dict(duration=grid.duration, policy="fb", nt=nt, dtype=dtype)
+        zero_counts()
+        got = wsk.fold_tables(*args, **kw)
+        want = wsk.fold_tables_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if read_counts()["ws_fold"] != 1:
+            raise AssertionError(f"ws_fold launches: {read_counts()}")
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        for name, a, b, h in zip(("integral", "winmax", "at_tick"), got,
+                                 want, host):
+            if not torch.equal(a, b):
+                raise AssertionError(f"ws_fold {dtype} {name}: the kernel "
+                                     f"differs from the plain version")
+            if not np.array_equal(a.cpu().numpy(), h.astype(np_dtype)):
+                raise AssertionError(f"ws_fold {dtype} {name}: the kernel "
+                                     f"differs from the host's build")
+        ms, device_bound = queued_ms(lambda: wsk.fold_tables(*args, **kw),
+                                     20)
+        plain_ms, _ = time_calls(lambda: wsk.fold_tables_ref(*args, **kw),
+                                 5)
+        nbytes = (W * P * (2 * nt + 1) * dtype.itemsize + values.nbytes
+                  + times.nbytes)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        cases.append(dict(dtype=str(dtype).split(".")[-1], ms=ms,
+                          device_bound=device_bound, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                          bound_share=bound_ms / ms))
+    emit("ws_fold", card=smi, lanes=W, steps=N, points=P, nt=nt,
+         lease_s=FOLD_LEASE, host_ms=1e3 * min(host_s),
+         host_ms_all=[1e3 * x for x in host_s], cases=cases,
+         equal_plain=True, equal_host=True)
+    return dict(host_ms=1e3 * min(host_s), cases=cases)
 
 
 # ------------------------------------------------ the serving slice (LM)
@@ -1961,6 +2066,7 @@ def zero_counts():
     fdk.flash_decode_bkv.launches = 0
     ssk.ssd_scan_bh.launches = 0
     jsk.simulate_kernel.launches = 0
+    wsk.fold_tables.launches = 0
 
 
 def read_counts():
@@ -1971,7 +2077,8 @@ def read_counts():
             "flash_attention": fak.flash_attention_bkv.launches,
             "flash_decode": fdk.flash_decode_bkv.launches,
             "ssd_scan": ssk.ssd_scan_bh.launches,
-            "jaxsim": jsk.simulate_kernel.launches}
+            "jaxsim": jsk.simulate_kernel.launches,
+            "ws_fold": wsk.fold_tables.launches}
 
 
 # The stages of a rounds sweep that wall_split times: the host pack of
@@ -3309,7 +3416,7 @@ def main() -> int:
     # --- build: one nvcc per source, all started together
     t0 = time.time()
     libraries = (rsk.LIBRARY, fak.LIBRARY, fdk.LIBRARY, ssk.LIBRARY,
-                 jsk.LIBRARY)
+                 jsk.LIBRARY, wsk.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(verbose=True),
                               libraries))
@@ -3607,6 +3714,7 @@ def main() -> int:
     # width 1024 (one round_step launch per policy)
     scan_phase(device, smi)
     scen = scenarios_phase(device, smi)
+    fold = ws_fold_phase(device, smi)
     zero_counts()
     live_phase(device, smi)
     if any(read_counts().values()):
@@ -3844,6 +3952,27 @@ def main() -> int:
         "factorial_ms": jaxsim["factorial"]["ms"],
         "factorial_plain_ms": 1e3 * jaxsim["factorial"]["plain_s"],
         "factorial_bound_ms": jaxsim["factorial"]["bound_ms"],
+    })
+    # ws_fold: the Monte-Carlo cell's pack folds (float64), one launch per
+    # policy and query; host_ms is the numpy build it replaces there.
+    f64 = fold["cases"][0]
+    line["kernels"].append({
+        "name": "ws_fold",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ws_fold.cu",
+        "replaces": "no Pallas counterpart: src/repro/sim/rounds.py "
+                    "ws_fold_tables_batch (numpy, host)",
+        "launches": scen["fold_launches"],
+        "max_abs_err": 0.0,
+        "ms": f64["ms"],
+        "plain_ms": f64["plain_ms"],
+        "bound_ms": f64["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "dtype": "float64",
+        "host_ms": fold["host_ms"],
+        "float32_ms": fold["cases"][1]["ms"],
+        "float32_bound_ms": fold["cases"][1]["bound_ms"],
     })
     emit("chain", chain_ms=per_launch("chain_ms"),
          bound_ms=per_launch("bound_ms"),

@@ -25,6 +25,13 @@ version, for NVIDIA Hopper (``sm_90a``).
   ``repro_torch.core.jaxsim``. It has no Pallas counterpart: the JAX
   package runs ``repro.core.jaxsim.simulate`` as a vmapped ``lax.scan``.
   Source: ``csrc/jaxsim.cu``.
+* ``ws_fold.py`` — the WS fold tables of a generated scenario batch
+  (``fold_tables``; plain version ``fold_tables_ref``), built by
+  ``repro_torch.sim.scenarios.pack_scenarios`` on the card straight into
+  the pack dtype. It has no Pallas counterpart: it replaces the host's
+  numpy ``repro.sim.rounds.ws_fold_tables_batch`` on that path. The
+  wrapper runs the plain version on CPU tensors. Source:
+  ``csrc/ws_fold.cu``.
 * ``ref.py`` — the model kernels' plain versions; ``ops.py`` — the
   model-layout entry points the models call.
 

@@ -160,14 +160,18 @@ _PACK_FIELDS = tuple(f.name for f in dataclasses.fields(PackedEventWorkloads)
                      if f.name not in _FAULT_FIELDS)
 
 
-def _to_pack(arrays: Dict[str, np.ndarray],
+def _to_pack(arrays: Dict[str, object],
              device: torch.device) -> PackedEventWorkloads:
     """The pack of the fields ``arrays`` holds (the fault tables are
-    optional)."""
+    optional). Host arrays are copied to ``device``; tensors already
+    built on it pass through unchanged, and the span's ``bytes`` counts
+    only the host arrays."""
     with spans.span("rounds.to_device", bytes=sum(
-            np.asarray(v).nbytes for v in arrays.values())):
+            np.asarray(v).nbytes for v in arrays.values()
+            if not isinstance(v, torch.Tensor))):
         return PackedEventWorkloads(**{
-            k: torch.from_numpy(np.array(v, order="C")).to(device)
+            k: v.to(device) if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v, order="C")).to(device)
             for k, v in arrays.items()})
 
 

@@ -13,8 +13,9 @@ Counterpart of ``repro.sim.scenarios``:
   :func:`synthesize` draws every lane on the CPU, turns the draws into
   tables on the device and pulls the batch host-side in one transfer,
   :func:`pack_scenarios` turns it into a
-  :class:`repro_torch.sim.rounds.PackedEventWorkloads` (one
-  ``ws_fold_tables_batch`` call for all (W, P) lanes), and
+  :class:`repro_torch.sim.rounds.PackedEventWorkloads` (the fold
+  tables of all (W, P) lanes in one kernel launch on the card, or one
+  host ``ws_fold_tables_batch`` call), and
   :func:`sample_workloads` materializes chosen lanes as ``(List[Job],
   ws_trace)`` for the event engine.
 
@@ -42,7 +43,7 @@ exactly), not bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ import torch
 from repro_torch import compat, spans
 from repro_torch.compat import resolve_pack_dtype
 from repro_torch.core.jobs import Job
+from repro_torch.kernels import ws_fold
 from repro_torch.sim.rounds import (PackedEventWorkloads, _to_pack,
                                     ws_fold_tables_batch)
 from repro_torch.sim.traces import TWO_WEEKS
@@ -394,16 +396,21 @@ def synthesize(grid: ScenarioGrid,
 
 def pack_scenarios(synth: SynthesizedBatch, window: int, policy: str,
                    leases: Sequence[float], levels: Sequence[float],
-                   dtype=None, device: compat.Device = None
-                   ) -> PackedEventWorkloads:
+                   dtype=None, device: compat.Device = None,
+                   kernel: Optional[str] = None) -> PackedEventWorkloads:
     """Pack a synthesized batch for one policy's sweep points on
     ``device`` — the generated-lane counterpart of
     :func:`repro_torch.sim.rounds.pack_event_workloads`, with every
     per-workload host loop replaced by array ops: job tables append the
-    window padding block, rise stops compress by an argsort of the
-    masked dense grid, and the WS fold tables build in ONE
-    :func:`~repro_torch.sim.rounds.ws_fold_tables_batch` call over all
-    (W, P) lanes."""
+    window padding block and rise stops compress by an argsort of the
+    masked dense grid, on the host. The WS fold tables of all (W, P)
+    lanes follow ``kernel``, the round step's backend
+    (``compat.resolve_backend``): ``"cuda"`` builds them on the card in
+    ONE :func:`repro_torch.kernels.ws_fold.fold_tables` launch, straight
+    into the pack dtype, from the demand moved there; ``"torch"`` builds
+    them on the host in ONE
+    :func:`~repro_torch.sim.rounds.ws_fold_tables_batch` call and copies
+    them. The two give the same tables bit for bit."""
     dev = compat.resolve_device(device)
     dtype = resolve_pack_dtype(dtype)
     W, J = synth.submit.shape
@@ -428,16 +435,29 @@ def pack_scenarios(synth: SynthesizedBatch, window: int, policy: str,
     # The dense grid's no-op points are value-identical for the fold
     # tables (equal adjacent segments merge in the integral, maxima and
     # boundary gathers are unchanged), so no per-lane compression pass.
-    integral, winmax, at_tick = ws_fold_tables_batch(
-        times, vals, synth.duration, policy,
-        np.asarray(leases, np.float64), np.asarray(levels, np.float64))
+    leases = np.asarray(leases, np.float64)
+    levels = np.asarray(levels, np.float64)
+    if compat.resolve_backend(kernel, dev, "kernel") == "cuda":
+        on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with spans.span("rounds.fold_tables", lanes=W, points=len(leases),
+                        backend="cuda"):
+            integral, winmax, at_tick = ws_fold.fold_tables(
+                on_dev(times), on_dev(synth.ws_values), on_dev(leases),
+                on_dev(levels), duration=synth.duration, policy=policy,
+                nt=ws_fold.table_width(synth.duration, leases),
+                dtype=torch.float64 if dtype == np.float64
+                else torch.float32)
+    else:
+        integral, winmax, at_tick = (t.astype(dtype) for t in
+                                     ws_fold_tables_batch(
+                                         times, vals, synth.duration,
+                                         policy, leases, levels))
     return _to_pack(dict(
         submit=submit, size=size, runtime=runtime, ws0=ws0.astype(dtype),
         ws_adjusts=ws_adjusts.astype(dtype),
         rise_times=rise_times.astype(dtype),
         rise_vals=rise_vals.astype(dtype),
-        ws_integral=integral.astype(dtype), ws_winmax=winmax.astype(dtype),
-        ws_at_tick=at_tick.astype(dtype),
+        ws_integral=integral, ws_winmax=winmax, ws_at_tick=at_tick,
         n_jobs=np.asarray(synth.n_jobs).astype(np.int32)), dev)
 
 

@@ -533,7 +533,8 @@ def _pack_scenarios_grids(points: List[SweepPoint], grid, synth,
     """Setup stage of the generated-scenario path: one
     :func:`repro_torch.sim.scenarios.pack_scenarios` per policy (job
     tables, rise compression and the batched (W, P) fold tables are all
-    array ops — no per-lane host loop)."""
+    array ops — no per-lane host loop; the fold follows the round step's
+    backend, ``options.kernel``)."""
     fb_idx = [i for i, p in enumerate(points) if p.system == "fb"]
     flb_idx = [i for i, p in enumerate(points) if p.system == "flb_nub"]
     duration = float(grid.duration)
@@ -549,7 +550,7 @@ def _pack_scenarios_grids(points: List[SweepPoint], grid, synth,
             fb_packed = scenarioslib.pack_scenarios(
                 synth, fb_spec.window, "fb", leases,
                 [float(points[i].capacity) for i in fb_idx],
-                dtype=options.dtype, device=device)
+                dtype=options.dtype, device=device, kernel=options.kernel)
             fb = _fb_grid(points, fb_idx, fb_packed.submit.dtype, device)
     if flb_idx:
         with spans.span("sweep.pack", policy="flb_nub"):
@@ -559,7 +560,7 @@ def _pack_scenarios_grids(points: List[SweepPoint], grid, synth,
             flb_packed = scenarioslib.pack_scenarios(
                 synth, flb_spec.window, "flb_nub", leases,
                 [float(points[i].lb_ws) for i in flb_idx],
-                dtype=options.dtype, device=device)
+                dtype=options.dtype, device=device, kernel=options.kernel)
             flb = _flb_grid(points, flb_idx, flb_packed.submit.dtype,
                             device)
     return (fb_idx, flb_idx, fb, flb, fb_packed, flb_packed, fb_spec,

@@ -12,10 +12,15 @@ lane ``w * P + p``), and those lanes' synthesized tables. After the
 window the reference makes each lane again from its seed (frozen draws
 and transforms, on the CPU) and compares the tables; where the lane's
 inputs agree, it runs the kept rows' points through the frozen event
-engine (``harness.refpool``, on ``check.workers`` processes)."""
+engine (``harness.refpool``, on ``check.workers`` processes).
+
+The kind's precision control (``lower``) and the CPU tests' cut
+(``small``) are the module's functions; its planted faults are in
+``faults/mc_grid.py``."""
 
 from __future__ import annotations
 
+import copy
 import math
 import sys
 from typing import Dict, List
@@ -29,6 +34,9 @@ from portbench.reference import scenarios as ref_scen
 PBJ_KEYS = ref_scen.PBJ_KEYS
 WS_KEYS = ref_scen.WS_KEYS
 N_PARAMS = {"fb": 2, "flb_nub": 6}
+# The program's pack precision one below the configuration's.
+LOWER_PACK = {"float64": "float32"}
+DAY = 86400.0
 
 
 def ws_params(cfg: Dict) -> Dict:
@@ -232,6 +240,36 @@ class Driver:
             tabs[s] = t
             rows += [(s, i, r) for i, r in zip(idx, made_rows)]
         return self.numbers(rows, tabs)
+
+
+def lower(config: Dict, traffic: Dict):
+    """The ``program`` control's ``(config, traffic)``: the program with
+    its pack one precision below the configuration's (float64 ->
+    float32). Synthesis, float32, has no lower path in the program."""
+    dtype = traffic["options"]["dtype"]
+    if dtype not in LOWER_PACK:
+        raise ValueError(f"mc_grid: the program has no pack one precision "
+                         f"below {dtype!r}")
+    return config, dict(traffic, options=dict(traffic["options"],
+                                              dtype=LOWER_PACK[dtype]))
+
+
+def small(config: Dict, traffic: Dict, days: float, lanes: int,
+          points: int):
+    """The CPU tests' ``(config, traffic)``: a horizon of ``days`` with the
+    job count cut in proportion, ``lanes`` scenarios a query, the first,
+    middle and last of the points (at most ``points``), three rows a
+    query checked on one worker."""
+    cfg, traffic = copy.deepcopy(config), copy.deepcopy(traffic)
+    scale = days * DAY / cfg["horizon_s"]
+    cfg["horizon_s"] = days * DAY
+    cfg["pbj"]["n_jobs"] = round(cfg["pbj"]["n_jobs"] * scale)
+    traffic["seeds_per_query"] = lanes
+    traffic["max_jobs"] = cfg["pbj"]["n_jobs"] + 8
+    pts = traffic["points"]
+    traffic["points"] = [pts[0], pts[len(pts) // 2], pts[-1]][:points]
+    traffic["check"] = {"rows_per_query": 3, "workers": 1}
+    return cfg, traffic
 
 
 def _name(dtype: torch.dtype) -> str:

@@ -5,14 +5,24 @@ traffic. Its files are found by name alone:
 
 * the configuration: the ``file`` of its entry in ``configs``;
 * the traffic: ``workloads/<cell>.json``, which names its driver kind;
-* the driver: ``drivers/<kind>.py``, which defines ``Driver``;
+* the driver: ``drivers/<kind>.py``, which defines ``Driver``, the
+  precision control ``lower`` and the CPU tests' cut ``small``;
+* the driver kind's planted faults: ``faults/<kind>.py``, which defines
+  ``FAULTS``;
 * each per-layer metric: ``metrics/<metric>.py``, which defines ``read``.
 
-So a later cell, configuration or metric is new files and a new entry,
-and no existing file changes."""
+So a later cell, configuration, driver kind or metric is new files and
+a new entry, and no existing file changes.
+
+A cell that the program fails, and that ``BENCHMARK.json`` therefore
+leaves out, is parked whole in ``parked.json``: its ``workloads`` entry
+and its metrics' entries, as they stood. ``with_parked`` adds them back
+for the CPU tests, so its files stay tested and the cell can return as
+entries alone; the benchmark's own runs never see it."""
 
 from __future__ import annotations
 
+import copy
 import importlib.util
 import json
 from pathlib import Path
@@ -22,12 +32,36 @@ from typing import Dict, List
 HERE = Path(__file__).resolve().parents[1]        # portbench/
 ROOT = HERE.parent                                # the checkout
 MANIFEST = ROOT / "BENCHMARK.json"
+PARKED = HERE / "parked.json"
 
 
 def load_manifest(path: Path = MANIFEST) -> Dict:
     if not path.is_file():
         raise FileNotFoundError(f"{path} is missing")
     return json.loads(path.read_text())
+
+
+def with_parked(manifest: Dict, path: Path = PARKED) -> Dict:
+    """``manifest`` with the parked cells of ``path`` and their metrics
+    added: a metric the manifest has already gains the parked cells in
+    its ``workloads``; a cell the manifest has already is left as it is
+    there."""
+    out = copy.deepcopy(manifest)
+    if not path.is_file():
+        return out
+    parked = json.loads(path.read_text())
+    have = set(cell_names(out))
+    out["workloads"] += [w for w in parked["workloads"]
+                         if w["name"] not in have]
+    for key in ("end_to_end", "per_layer"):
+        live = {m["name"]: m for m in out[key]}
+        for m in parked[key]:
+            if m["name"] not in live:
+                out[key].append(copy.deepcopy(m))
+            elif "workloads" in live[m["name"]]:
+                cells = live[m["name"]]["workloads"]
+                cells += [c for c in m.get("workloads", []) if c not in cells]
+    return out
 
 
 def _load_module(path: Path, name: str) -> ModuleType:
@@ -49,6 +83,7 @@ class Cell:
                            f"known: {sorted(cells)}")
         self.entry = cells[name]
         self.name = name
+        self.chips = int(self.entry["chips"])
         configs = {c["name"]: c for c in manifest["configs"]}
         self.config_entry = configs[self.entry["config"]]
         self.config = json.loads(
@@ -59,15 +94,27 @@ class Cell:
             raise ValueError(f"workloads/{name}.json is traffic "
                              f"{self.traffic.get('traffic')!r}, the "
                              f"manifest says {self.entry['traffic']!r}")
+        self.kind = self.traffic["driver"]
         self.end_to_end = [m for m in manifest["end_to_end"]
                            if name in m.get("workloads", [name])]
         self.per_layer = [m for m in manifest["per_layer"]
                           if name in m.get("workloads", [name])]
 
     def driver_module(self) -> ModuleType:
-        kind = self.traffic["driver"]
-        return _load_module(HERE / "drivers" / f"{kind}.py",
-                            f"portbench_driver_{kind}")
+        return driver(self.kind)
+
+
+def driver(kind: str) -> ModuleType:
+    """``drivers/<kind>.py``: ``Driver``, ``lower`` and ``small``."""
+    return _load_module(HERE / "drivers" / f"{kind}.py",
+                        f"portbench_driver_{kind}")
+
+
+def faults(kind: str) -> ModuleType:
+    """``faults/<kind>.py``: ``FAULTS``, each fault's name to its
+    ``patch(monkeypatch)``."""
+    return _load_module(HERE / "faults" / f"{kind}.py",
+                        f"portbench_faults_{kind}")
 
 
 def cell_names(manifest: Dict) -> List[str]:

@@ -1,6 +1,8 @@
-"""A cell cut to a size the CPU tests can run: a short horizon with the
-job count cut in proportion, a few lanes and points a query. Only the
-tests use it; the benchmark runs every cell as its files state."""
+"""A cell cut to a size the CPU tests can run, by its driver kind's
+``small`` (for ``mc_grid``: a short horizon with the job count cut in
+proportion, a few lanes and points a query). Only the tests use it; the
+benchmark runs every cell as its files state. A parked cell
+(``harness/manifest.py``) is found too."""
 
 from __future__ import annotations
 
@@ -9,21 +11,13 @@ from pathlib import Path
 
 from portbench.harness import manifest
 
-DAY = 86400.0
-
 
 def small_cell(name: str, days: float = 2.0, lanes: int = 3,
                points: int = 3) -> manifest.Cell:
-    cell = manifest.Cell(manifest.load_manifest(), name)
-    cfg, traffic = cell.config, cell.traffic
-    scale = days * DAY / cfg["horizon_s"]
-    cfg["horizon_s"] = days * DAY
-    cfg["pbj"]["n_jobs"] = round(cfg["pbj"]["n_jobs"] * scale)
-    traffic["seeds_per_query"] = lanes
-    traffic["max_jobs"] = cfg["pbj"]["n_jobs"] + 8
-    pts = traffic["points"]
-    traffic["points"] = [pts[0], pts[len(pts) // 2], pts[-1]][:points]
-    traffic["check"] = {"rows_per_query": 3, "workers": 1}
+    cell = manifest.Cell(manifest.with_parked(manifest.load_manifest()),
+                         name)
+    cell.config, cell.traffic = cell.driver_module().small(
+        cell.config, cell.traffic, days, lanes, points)
     return cell
 
 

@@ -28,7 +28,7 @@ def test_short_run_on_the_card(card, name):
     assert out.returncode == 0, out.stderr[-4000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] is True, out.stderr[-4000:]
-    assert line["device"]["platform"] == "gpu" and line["device"]["count"] == 1
-    assert set(line["metrics"]) == {m["name"] for m in
-                                    manifest.Cell(manifest.load_manifest(),
-                                                  name).end_to_end}
+    cell = manifest.Cell(manifest.load_manifest(), name)
+    assert line["device"]["platform"] == "gpu"
+    assert line["device"]["count"] == cell.chips
+    assert set(line["metrics"]) == {m["name"] for m in cell.end_to_end}

@@ -11,7 +11,8 @@ import pytest
 from portbench.harness import guard, manifest
 from portbench.smallcell import run_module, run_small, small_cell
 
-CELLS = manifest.cell_names(manifest.load_manifest())
+CELLS = manifest.cell_names(manifest.with_parked(manifest.load_manifest()))
+LIVE = manifest.cell_names(manifest.load_manifest())
 
 
 def test_reference_lanes_equal_the_programs_synthesis():
@@ -90,8 +91,10 @@ def test_harness_and_reference_load_nothing_of_jax():
         " portbench.harness.refpool, portbench.reference.scenarios;"
         "import portbench.harness.trace, portbench.harness.stages;"
         "ref = {n.split('.')[0] for n in sys.modules};"
-        "c = m.Cell(m.load_manifest(), 'ipsc_wc98.mc_fb'); c.driver_module();"
-        "m.metric_readers(c.per_layer + c.end_to_end);"
+        "M = m.with_parked(m.load_manifest());"
+        "cs = [m.Cell(M, n) for n in m.cell_names(M)];"
+        "[c.driver_module() for c in cs];"
+        "[m.metric_readers(c.per_layer + c.end_to_end) for c in cs];"
         "from portbench.harness.guard import forbidden_loaded;"
         "print(sorted(ref & {'repro_torch', 'repro', 'jax', 'jaxlib',"
         " 'flax'}), forbidden_loaded())")
@@ -105,7 +108,7 @@ def test_harness_and_reference_load_nothing_of_jax():
 def test_run_refuses_without_a_card_and_without_the_program(tmp_path):
     out = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload",
-         "ipsc_wc98.mc_fb", "--seed", "1", "--seconds", "1", "--trace",
+         LIVE[0], "--seed", "1", "--seconds", "1", "--trace",
          "0"], cwd=manifest.ROOT, capture_output=True, text=True,
         timeout=120)
     assert out.returncode != 0 and out.stdout.strip() == ""
@@ -115,7 +118,51 @@ def test_run_refuses_without_a_card_and_without_the_program(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__"))
     out = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload",
-         "ipsc_wc98.mc_fb", "--seed", "1", "--seconds", "1", "--trace",
+         LIVE[0], "--seed", "1", "--seconds", "1", "--trace",
          "0"], cwd=tmp_path, capture_output=True, text=True, timeout=120,
         env={"PATH": "/usr/bin:/bin"})
     assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+def test_tick_reference_equals_the_programs_plain_step():
+    """``reference/ticksim.py`` over a table per lane, one of them padded
+    (the second fortnight cut by five jobs), gives the program's plain
+    step's rows bit for bit, in float64 and float32."""
+    import torch
+    from portbench.reference import ticksim
+    from repro_torch.kernels import jaxsim_step
+    cell = small_cell("ipsc_wc98.mc_study", days=1.0, lanes=2)
+    drv = cell.driver_module().Driver(cell.config, cell.traffic, 2 ** 31 + 9,
+                                      "cpu")
+    batch = drv.sc.synthesize(drv.make(0)["grid"], device="cpu")
+    prm = torch.tensor([[p[k] for k in "BUVG"] for p in drv.points])
+    n_jobs = [int(batch.n_jobs[0]), int(batch.n_jobs[1]) - 5]
+    for dtype in (torch.float64, torch.float32):
+        items = [(dict(submit=batch.submit[w], size=batch.size[w],
+                       runtime=batch.runtime[w], n_jobs=n_jobs[w],
+                       ws_values=batch.ws_values[w]), i)
+                 for w in range(2) for i in range(len(drv.points))]
+        ref = drv.reference_rows(items, dtype)
+        for w in range(2):
+            n = n_jobs[w]
+            got = jaxsim_step.simulate_ref(
+                prm.to(dtype), *(torch.from_numpy(a[w, :n]).to(dtype) for a
+                                 in (batch.submit, batch.size,
+                                     batch.runtime)),
+                torch.from_numpy(batch.ws_values[w, :drv.n_steps]).to(dtype),
+                n_steps=drv.n_steps, lease_seconds=drv.lease,
+                lb_ws=drv.lb_ws, substeps=drv.substeps)
+            for i in range(len(drv.points)):
+                want = ref[w * len(drv.points) + i]
+                assert {k: float(got[k][i]) for k in ticksim.OUTPUTS} \
+                    == want, (dtype, w, i)
+
+
+def test_traced_cpu_run_of_the_study_reads_its_stages():
+    result, _ = run_small(small_cell("ipsc_wc98.mc_study", days=1.0),
+                          trace=True)
+    assert result["correct"] is True, result
+    m = result["metrics"]
+    assert m["synth_ms.study"]["value"] > 0
+    assert m["simulate_ms.study"]["value"] > 0
+    assert "jaxsim_us_per_lane.study" not in m

@@ -23,7 +23,8 @@ NEW = ["synth_draws_ms.mc", "synth_transforms_ms.mc", "pack_fold_ms.mc",
        "pack_to_device_ms.mc", "rows_ms.mc", "pack_idle_ms.mc",
        "round_step_us_per_outer_step.mc"]
 READERS = manifest.metric_readers(
-    [m for m in manifest.load_manifest()["per_layer"] if m["name"] in NEW])
+    [m for m in manifest.with_parked(manifest.load_manifest())["per_layer"]
+     if m["name"] in NEW])
 
 
 def made(i, name, parent, start, end, **attrs):
